@@ -14,7 +14,17 @@ nvcc. Phases:
      and both times from CUDA events;
   5. office at 480x270 through the kernels and through the plain versions;
   6. office at 1920x1080 through the kernels, warm, three times: launch
-     counts of that run, median seconds, rays/s, image checks.
+     counts of that run, median seconds, rays/s, image checks;
+  7. the shade-segment kernels K5 (forward) and K6 (backward) against
+     their plain versions on the 1080p frame's first segment, with the
+     topology from trace_topology and seeded random cotangents;
+  8. the training step render_loss_grad_image at 480x270 three ways
+     (kernels, plain versions, the autograd replay): losses and all 23
+     gradients;
+  9. the training step at 1920x1080 through the kernels, warm, three
+     times (launch counts of that run, median seconds, rays/s, finite
+     loss and gradients), then three Adam steps on mat_diffuse and
+     light_color toward a darker render: the loss must fall.
 
 Prints one JSON line with the per-kernel summary, then a final JSON status
 line. Any failed check raises and the exit code is non-zero; without a
@@ -44,7 +54,15 @@ KERNELS = (
      "myraytracer_tpu/ops/pallas_shade.py:143"),
     ("shade_phong", "myraytracer_tpu_torch/csrc/shade.cu",
      "myraytracer_tpu/ops/pallas_shade.py:336"),
+    ("seg_fwd", "myraytracer_tpu_torch/csrc/shade_grad.cu",
+     "myraytracer_tpu/ops/shade_grad.py:503"),
+    ("seg_bwd", "myraytracer_tpu_torch/csrc/shade_grad.cu",
+     "myraytracer_tpu/ops/shade_grad.py:516"),
 )
+
+#: kernels each path must launch: the forward render, the training step
+FWD_KERNELS = ("phase1_exact", "cluster_scan_closest", "cluster_scan_anyhit",
+               "shade_pre", "shade_phong")
 
 #: kernel vs plain version. Shading (K3/K4, built without FMA
 #: contraction) and phase-1 (K2): float outputs within rtol 1e-5 / atol
@@ -53,6 +71,12 @@ KERNELS = (
 #: reference's own bar for two forms of one solve) and t within rtol 5e-5
 #: where the ids agree (the reference's bar for t).
 RTOL, ATOL, ID_AGREE, RTOL_T = 1e-5, 1e-6, 0.995, 5e-5
+
+#: K6's cotangents (atomic sums in a run-dependent order) within
+#: REL_COT * max|plain|, and the training step's gradients (index_add_
+#: and atomics over many rays) within REL_GRAD * max|a|: the reference's
+#: own bars for its hand-derived VJP (tests/test_shade_grad.py)
+REL_COT, REL_GRAD = 3e-5, 5e-4
 
 
 class CheckFailed(AssertionError):
@@ -94,6 +118,17 @@ def close(name, got, want, rtol=RTOL) -> float:
     check(not bool(bad.any()),
           f"{name}: {int(bad.sum())} values outside rtol {rtol} atol {ATOL}")
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def close_scaled(name, got, want, rel) -> float:
+    """Max abs diff in units of max|want|; checks it is at most rel."""
+    import torch
+
+    check(bool(torch.isfinite(want).all()), f"{name}: reference not finite")
+    scale = max(float(want.abs().max()) if want.numel() else 0.0, 1e-3)
+    ratio = float((got - want).abs().max()) / scale if want.numel() else 0.0
+    check(ratio <= rel, f"{name}: max diff {ratio:.3g} * max|a|, bar {rel}")
+    return ratio
 
 
 def compare_kernels(data, camera, report):
@@ -202,6 +237,123 @@ def compare_kernels(data, camera, report):
     print(f"shade_phong: max_abs_err={err}")
 
 
+def compare_segment_kernels(data, camera, report):
+    """Phase 7: K5 and K6 vs their plain versions on the 1080p first
+    segment, with the recorded topology."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import shade, shade_grad as sg
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import primary_rays_blocked
+
+    pack = tr.pack_trace(data)
+    o, d = primary_rays_blocked(camera, data.device)
+    topo = tr.trace_topology(data, o, d, pack=pack)
+    R = o.shape[0]
+    ti = torch.clamp(topo.idx[0], 0, data.n_tris - 1).to(torch.int32).contiguous()
+    args = (o, d, torch.ones(R, device=o.device), pack.geom.tri_pack, ti,
+            data.light_pos, data.light_color, data.ambience, data.background,
+            (topo.kind[0] == shade.KIND_TRI).contiguous(),
+            topo.hit[0].contiguous(), topo.miss[0].contiguous(),
+            (~topo.shadow[0]).float().contiguous())
+    gen = torch.Generator(device=o.device)
+    gen.manual_seed(0)
+    cots = [torch.randn(sh, generator=gen, device=o.device)
+            for sh in ((R, 3), (R, 3), (R, 3), (R,))]
+
+    fwd, fwd_p = sg.segment_fwd(*args), sg.segment_plain(*args)
+    err = max(close(f"seg_fwd.{nm}", a, b)
+              for nm, a, b in zip(("add", "o2", "d2", "w2"), fwd, fwd_p))
+    report["seg_fwd"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: sg.segment_fwd(*args), 20),
+        plain_ms=time_ms(lambda: sg.segment_plain(*args), 3))
+    print(f"seg_fwd: {R} rays, hits {float(args[10].float().mean()):.4f}, "
+          f"max_abs_err={err}")
+
+    bwd = sg.segment_bwd(*args, *cots)
+    bwd_p = sg.segment_bwd_plain(*args, *cots)
+    names = ("g_o", "g_d", "g_w", "g_rows", "g_light_pos", "g_light_color",
+             "g_ambience", "g_background")
+    # a recorded hit whose re-solve fails keeps its point at t = INF; with
+    # a nonzero bounce cotangent its exact reverse is inf (the
+    # reference's too): those entries must match, the rest within the bar
+    err, worst, n_inf = 0.0, 0.0, 0
+    for nm, a, b in zip(names, bwd, bwd_p):
+        check(tuple(a.shape) == tuple(b.shape), f"seg_bwd.{nm}: shape")
+        fin = torch.isfinite(b)
+        check(torch.equal(fin, torch.isfinite(a))
+              and torch.equal(a[~fin].nan_to_num(), b[~fin].nan_to_num()),
+              f"seg_bwd.{nm}: non-finite entries differ")
+        n_inf += int((~fin).sum())
+        worst = max(worst, close_scaled(f"seg_bwd.{nm}", a[fin], b[fin],
+                                        REL_COT))
+        err = max(err, float((a[fin] - b[fin]).abs().max()))
+    report["seg_bwd"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: sg.segment_bwd(*args, *cots), 20),
+        plain_ms=time_ms(lambda: sg.segment_bwd_plain(*args, *cots), 3))
+    print(f"seg_bwd: max_abs_err={err}, worst diff {worst:.3g} * max|plain| "
+          f"(bar {REL_COT}); {n_inf} non-finite entries, equal in both")
+
+
+def compare_training_paths(data, cam_small):
+    """Phase 8: the 480x270 training step through the kernels, the plain
+    versions and the autograd replay: losses and all 23 gradients."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
+
+    target = 0.9 * render(data, cam_small) + 0.02
+    runs = {}
+    for name, cfg in (("kernels", tr.TraceConfig()),
+                      ("plain", tr.TraceConfig(plain=True)),
+                      ("autograd", tr.TraceConfig(fused_shade_grad=False))):
+        runs[name] = render_loss_grad_image(data, cam_small, target, cfg=cfg)
+    loss_k, g_k = runs["kernels"]
+    check(len(g_k) == 23, f"{len(g_k)} gradient keys")
+    for name in ("plain", "autograd"):
+        loss, g = runs[name]
+        rel = abs(float(loss_k) - float(loss)) / abs(float(loss))
+        check(rel <= RTOL, f"loss kernels vs {name}: rel diff {rel}")
+        check(set(g) == set(g_k), f"gradient keys of {name}")
+        ratios = {k: round(close_scaled(f"grad {k} vs {name}", g_k[k], g[k],
+                                        REL_GRAD), 9)
+                  for k in g if g[k].numel()}
+        print(f"loss-grad {cam_small.width}x{cam_small.height}: kernels "
+              f"{float(loss_k)} vs {name} {float(loss)} (rel {rel:.3g}); "
+              f"worst diff per key, in max|a|: {ratios}")
+
+
+def train_steps(data, camera, steps: int = 3) -> list:
+    """Phase 9b: Adam on mat_diffuse and light_color toward the render of
+    the scene with mat_diffuse * 0.8; returns the losses."""
+    import dataclasses
+
+    import torch
+
+    from myraytracer_tpu_torch import merge_params, render_loss_grad_image
+    from myraytracer_tpu_torch.ops.render import render
+
+    target = render(dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.8),
+                    camera)
+    p = {k: getattr(data, k).clone().requires_grad_(True)
+         for k in ("mat_diffuse", "light_color")}
+    opt = torch.optim.Adam(p.values(), lr=0.02)
+    losses = []
+    for step in range(steps + 1):
+        scene = merge_params(data, {k: v.detach() for k, v in p.items()})
+        loss, grads = render_loss_grad_image(scene, camera, target)
+        losses.append(float(loss))
+        if step == steps:
+            break
+        opt.zero_grad()
+        for k, v in p.items():
+            v.grad = grads[k]
+        opt.step()
+    return losses
+
+
 def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
         small=(480, 270), n_tris=18664) -> dict:
     """All phases after the build; returns the per-kernel report."""
@@ -209,7 +361,7 @@ def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
 
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
     from myraytracer_tpu_torch.ops import tracer as tr
-    from myraytracer_tpu_torch.ops.render import render
+    from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
     from myraytracer_tpu_torch.scenes.golden import scene_08_office
 
     t = time.perf_counter()
@@ -253,9 +405,42 @@ def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
     check(tuple(img.shape) == (full[1], full[0], 3), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "image is not finite")
     check(0.05 <= mean <= 0.95, f"image mean {mean}")
-    for name, _, _ in KERNELS:
+    for name in FWD_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the render")
         report[name]["launches"] = launches[name]
+
+    compare_segment_kernels(data, scene.camera, report)
+    compare_training_paths(data, cam_small)
+
+    target = 0.9 * render(data, scene.camera) + 0.02
+    render_loss_grad_image(data, scene.camera, target)      # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    secs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        loss, grads = render_loss_grad_image(data, scene.camera, target)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    launches = dict(LAUNCHES)
+    med = statistics.median(secs)
+    print(f"loss-grad {full[0]}x{full[1]}: median {med:.4f} s of {secs}, "
+          f"{full[0] * full[1] / med:.4g} rays/s, loss {float(loss)}, "
+          f"launches {launches}")
+    check(bool(torch.isfinite(loss)), f"loss {float(loss)}")
+    check(len(grads) == 23, f"{len(grads)} gradient keys")
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"gradient {k} is not finite")
+    for name, _, _ in KERNELS:
+        check(launches[name] > 0,
+              f"{name} was not launched by the training step")
+        report[name]["train_launches"] = launches[name]
+    for name in ("seg_fwd", "seg_bwd"):
+        report[name]["launches"] = launches[name]
+
+    losses = train_steps(data, scene.camera)
+    print(f"Adam on mat_diffuse, light_color: losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     return report
 
 

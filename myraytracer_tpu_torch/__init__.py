@@ -7,13 +7,17 @@ neither it nor JAX.
 
 Layout (module names follow the reference):
     models/    scene authoring and the packed SceneData of tensors
-    ops/       cluster cut, cluster scan, shading, tracer, render
+    ops/       cluster cut, cluster scan, shading, shade segment, refit,
+               tracer, render and training entry points
+    parallel/  split_params / merge_params of the training step
     scenes/    procedural authoring of the office scene
     utils/     vector math
     kernels/   nvcc build and ctypes binding of csrc/*.cu
-    csrc/      the CUDA kernels (cluster scan, phase-1, shading)
+    csrc/      the CUDA kernels (cluster scan, phase-1, shading, shade
+               segment forward and backward)
 
-Ported so far: the forward render of triangle-only, untextured scenes.
+Ported so far: the forward render and the training step (loss and
+scene-parameter gradients) of triangle-only, untextured scenes.
 """
 
 __version__ = "0.1.0"
@@ -23,7 +27,10 @@ from myraytracer_tpu_torch.models.light import Light
 from myraytracer_tpu_torch.models.material import Material
 from myraytracer_tpu_torch.models.scene import (Scene, SceneData,
                                                 scenedata_from_arrays)
-from myraytracer_tpu_torch.ops.render import render
+from myraytracer_tpu_torch.ops.render import (render, render_loss_grad,
+                                               render_loss_grad_image)
+from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
+                                                         split_params)
 
 __all__ = [
     "Camera",
@@ -31,6 +38,10 @@ __all__ = [
     "Material",
     "Scene",
     "SceneData",
+    "merge_params",
     "render",
+    "render_loss_grad",
+    "render_loss_grad_image",
     "scenedata_from_arrays",
+    "split_params",
 ]

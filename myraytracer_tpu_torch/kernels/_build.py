@@ -45,7 +45,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: sources built without FMA contraction (see the module docstring)
-NO_FMA = ("shade.cu",)
+NO_FMA = ("shade.cu", "shade_grad.cu")
 
 #: kernel launches so far, per kernel; a wrapper adds one where it
 #: launches its kernel and nowhere else (reset with reset_launches)
@@ -55,6 +55,8 @@ LAUNCHES = {
     "cluster_scan_anyhit": 0,
     "shade_pre": 0,
     "shade_phong": 0,
+    "seg_fwd": 0,
+    "seg_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -65,9 +67,14 @@ _SIGNATURES = {
     "mrt_cluster_scan": [_P] * 13 + [_I] * 5 + [_P],
     "mrt_shade_pre": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 3 + [_P] * 8,
     "mrt_shade_phong": [_P] * 13 + [_I] * 3 + [_P] * 5,
+    "mrt_seg_fwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
+    "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
 }
 
 _lib = None
+
+#: dtype of a check_inputs argument, by the letter its name ends in
+_DTYPES = {"f": torch.float32, "i": torch.int32, "b": torch.bool}
 
 
 def reset_launches() -> None:
@@ -165,9 +172,9 @@ def launch(entry: str, counter: str, device: torch.device, *args) -> None:
 
 def check_inputs(name: str, device: torch.device, **tensors) -> None:
     """Raise unless every tensor is contiguous, on ``device``, with the
-    dtype its name ends in (``_f`` float32, ``_i`` int32)."""
+    dtype its name ends in (``_f`` float32, ``_i`` int32, ``_b`` bool)."""
     for key, t in tensors.items():
-        want = torch.float32 if key.endswith("_f") else torch.int32
+        want = _DTYPES[key[-1]]
         if t.device != device or t.dtype != want or not t.is_contiguous():
             raise ValueError(
                 f"{name}: {key[:-2]} must be a contiguous {want} tensor on "

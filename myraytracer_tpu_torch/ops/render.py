@@ -1,20 +1,33 @@
-"""Render driver: one primary ray per pixel in screen-block order (torch).
+"""Render and training entry points in screen-block order (torch).
 
-Counterpart of ``myraytracer_tpu/ops/render.render``. Pixels are padded
-to whole BLOCK x BLOCK screen blocks and the rays of one block are
-contiguous, so every compaction subgroup of the cluster scan is a compact
-screen footprint. The frame is traced in one batch by default; ``tile``
-cuts it into batches of whole screen blocks to bound memory.
+Counterpart of ``render`` and ``render_loss_grad(_image)`` in
+``myraytracer_tpu/ops/render.py``. Pixels are padded to whole BLOCK x
+BLOCK screen blocks and the rays of one block are contiguous, so every
+compaction subgroup of the cluster scan is a compact screen footprint.
+The frame is traced in one batch by default; ``tile`` cuts it into
+batches of whole screen blocks to bound memory.
+
+The training step (:func:`render_loss_grad_image`) returns the SSE loss
+against a target image and its gradient with respect to every float
+scene parameter: refit, a gradient-free topology pass over every tile,
+then the differentiable shading replay of each tile, summed, and one
+backward over the parameters.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from myraytracer_tpu_torch.models.camera import Camera
+from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import tracer as tr
+from myraytracer_tpu_torch.ops.refit import refit_accel
+from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
+                                                         split_params)
 
 #: screen-block edge of the primary ray order
 BLOCK = 32
@@ -59,6 +72,15 @@ def _trace_tiled(scene, o, d, cfg: tr.TraceConfig, tile: int,
     return torch.cat(colors)
 
 
+def _to_blocks(a: torch.Tensor, block: int) -> torch.Tensor:
+    """[Hp, Wp, ...] -> [Hp * Wp, ...] in screen-block order."""
+    Hp, Wp = a.shape[:2]
+    lead = tuple(a.shape[2:])
+    return (a.reshape((Hp // block, block, Wp // block, block) + lead)
+            .permute((0, 2, 1, 3) + tuple(range(4, 4 + len(lead))))
+            .reshape((-1,) + lead))
+
+
 def primary_rays_blocked(camera: Camera, device, block: int = BLOCK):
     """Primary rays of the padded frame in block order -> (o, d) [R, 3]."""
     H, W = camera.height, camera.width
@@ -67,12 +89,7 @@ def primary_rays_blocked(camera: Camera, device, block: int = BLOCK):
     ys, xs = torch.meshgrid(
         torch.arange(Hp, dtype=torch.float32, device=device),
         torch.arange(Wp, dtype=torch.float32, device=device), indexing="ij")
-
-    def to_blocks(a):
-        return (a.reshape(Hp // block, block, Wp // block, block)
-                .permute(0, 2, 1, 3).reshape(-1))
-
-    o, d = camera.primary_rays(to_blocks(xs), to_blocks(ys))
+    o, d = camera.primary_rays(_to_blocks(xs, block), _to_blocks(ys, block))
     return o.contiguous(), d.contiguous()
 
 
@@ -96,3 +113,128 @@ def render(scene, camera: Camera, tile: Optional[int] = None,
            .permute(0, 2, 1, 3, 4)
            .reshape(Hp, Wp, 3)[:H, :W])
     return torch.clamp(img, max=1.0)
+
+
+def restore_mirror_chain(scene):
+    """Un-trim ``live_depth`` when the scene's current mirrors need it.
+
+    ``Scene.build`` trims mirror-free scenes to one Whitted segment. If a
+    caller then moves ``mat_mirror`` above 0, the trimmed trace would drop
+    the reflected radiance and its gradient: any mirror > 0 restores the
+    full chain (max_depth + 1 segments). All mirrors 0 leave the scene as
+    it is, which loses nothing: every weight is 0 after segment 0.
+    """
+    if not (scene.live_depth and scene.live_depth <= scene.max_depth):
+        return scene
+    if float(scene.mat_mirror.max()) > 0.0:
+        return dataclasses.replace(scene, live_depth=scene.max_depth + 1)
+    return scene
+
+
+def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
+                     tile: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SSE loss ``sum(w (c - target)^2)`` of a flat ray batch and its
+    gradient with respect to ``split_params(scene)``.
+
+    Refit, then the topology of every tile (no gradients), then the
+    replay of every tile against one pack of the parameters, summed, and
+    one backward, so the pack's gather backward runs once per pass.
+    Padded rays (o 0, d 1, target 0) carry w 0. The four phases are
+    profiler ranges (``mrt.refit``, ``mrt.topology``, ``mrt.replay``,
+    ``mrt.backward``) that tools/torch_profile.py reports.
+    """
+    rf = torch.profiler.record_function
+    with rf("mrt.refit"):
+        scene = refit_accel(scene)
+    R = o.shape[0]
+    tile = _fit_tile(R, min(tile, R), 1024)
+    n_tiles = max(1, -(-R // tile))
+    pad = n_tiles * tile - R
+    F = torch.nn.functional
+    o_p = F.pad(o, (0, 0, 0, pad))
+    d_p = F.pad(d, (0, 0, 0, pad), value=1.0)
+    t_p = F.pad(target, (0, 0, 0, pad))
+    w_p = F.pad(w, (0, pad))
+
+    def tiles(a):
+        return [a[i * tile:(i + 1) * tile].contiguous()
+                for i in range(n_tiles)]
+
+    o_t, d_t, t_t, w_t = tiles(o_p), tiles(d_p), tiles(t_p), tiles(w_p)
+    with rf("mrt.topology"):
+        pack = tr.pack_trace(scene)
+        topo = [tr.trace_topology(scene, ot, dt, cfg, pack)
+                for ot, dt in zip(o_t, d_t)]
+
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in split_params(scene).items()}
+    merged = merge_params(scene, params)
+
+    def tile_loss(geom, ot, dt, tt, wt, tp):
+        c = tr.trace_shade(merged, ot, dt, tp, cfg, geom)
+        return torch.sum(wt[:, None] * (c - tt) ** 2)
+
+    total = None
+    with rf("mrt.replay"):
+        geom = shade.pack_shade_geom(merged)
+        for ot, dt, tt, wt, tp in zip(o_t, d_t, t_t, w_t, topo):
+            args = (geom, ot, dt, tt, wt, tp)
+            if cfg.fused_shade_grad:
+                # the fused segment's residuals are its inputs: no
+                # checkpoint
+                part = tile_loss(*args)
+            else:
+                part = torch.utils.checkpoint.checkpoint(
+                    tile_loss, *args, use_reentrant=False)
+            total = part if total is None else total + part
+    names = list(params)
+    with rf("mrt.backward"):
+        grads = torch.autograd.grad(total, [params[k] for k in names],
+                                    allow_unused=True)
+    return total.detach(), {
+        k: torch.zeros_like(params[k]) if g is None else g
+        for k, g in zip(names, grads)}
+
+
+def render_loss_grad(scene, o: torch.Tensor, d: torch.Tensor,
+                     target: torch.Tensor, tile: Optional[int] = None,
+                     cfg: tr.TraceConfig = tr.TraceConfig()):
+    """SSE loss + scene-parameter grads for a flat ray batch.
+
+    o, d, target [R, 3]. Returns (loss, grads), grads keyed like
+    :func:`split_params`. ``tile`` (rays) bounds the replay's memory; None
+    runs the batch as one tile. For whole images prefer
+    :func:`render_loss_grad_image` (block-coherent tiles).
+    """
+    scene = restore_mirror_chain(scene)
+    w = torch.ones(o.shape[0], dtype=o.dtype, device=o.device)
+    return _loss_grad_tiled(scene, o, d, target, w, cfg,
+                            o.shape[0] if tile is None else tile)
+
+
+def render_loss_grad_image(scene, camera: Camera, target: torch.Tensor,
+                           tile: Optional[int] = None,
+                           cfg: tr.TraceConfig = tr.TraceConfig()):
+    """Whole-image SSE loss + scene-parameter grads: the training step.
+
+    ``target`` [H, W, 3] on the scene's device. Rays and target pixels
+    run in screen-block order; padded pixels carry weight 0. ``tile``
+    (rays, rounded down to whole screen blocks) cuts the frame into
+    replay tiles; None runs it as one. Returns (loss, grads), grads keyed
+    like :func:`split_params`; a parameter the loss does not reach gets
+    zeros.
+    """
+    scene = restore_mirror_chain(scene)
+    H, W = camera.height, camera.width
+    b = BLOCK
+    Hp = -(-H // b) * b
+    Wp = -(-W // b) * b
+    o, d = primary_rays_blocked(camera, scene.device, b)
+    F = torch.nn.functional
+    tgt = F.pad(target.to(o.dtype), (0, 0, 0, Wp - W, 0, Hp - H))
+    w = F.pad(torch.ones((H, W), dtype=o.dtype, device=o.device),
+              (0, Wp - W, 0, Hp - H))
+    R = o.shape[0]
+    tile_eff = R if tile is None else max(b * b, (tile // (b * b)) * (b * b))
+    return _loss_grad_tiled(scene, o, d, _to_blocks(tgt, b),
+                            _to_blocks(w, b), cfg, tile_eff)

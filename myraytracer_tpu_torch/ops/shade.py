@@ -1,6 +1,7 @@
 """Hit kinds, the secondary-ray offset and the packed shading rows (torch).
 
-Counterpart of the packing half of ``myraytracer_tpu/ops/shade.py``.
+Counterpart of ``myraytracer_tpu/ops/shade.py`` for triangle-only
+scenes: the packed rows and the differentiable hit resolve.
 ``pack_shade_geom`` builds the per-triangle row table that the pre
 kernel (ops/cuda_shade.py) reads by hit id, with the reference layout:
 
@@ -13,7 +14,10 @@ kernel (ops/cuda_shade.py) reads by hit id, with the reference layout:
     diffuse3 ambient3 specular3 shininess mirror shadowable | pad
 
 Only triangle-only scenes are packed (the 48-column layout); scenes with
-spheres, planes or cylinders are not ported yet.
+spheres, planes or cylinders are not ported yet. The pack is an ordinary
+differentiable function of the scene's tensors (no detach): built once
+per training pass, its gather backward carries the row cotangents back
+to ``vertex_pos``, ``vertex_normal`` and the material table once.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from myraytracer_tpu_torch.ops import intersect as isx
+from myraytracer_tpu_torch.utils import vecmath as vm
 
 # hit kinds
 KIND_MISS = 0
@@ -31,6 +38,21 @@ KIND_CYL = 4
 
 #: self-intersection offset for secondary rays
 EPS_OFFSET = 1e-4
+
+
+class Hit(NamedTuple):
+    """Differentiable per-ray surface interaction."""
+
+    valid: torch.Tensor       # [R] bool
+    t: torch.Tensor           # [R]
+    point: torch.Tensor       # [R, 3]
+    normal: torch.Tensor      # [R, 3] (unnormalised for PHONG meshes)
+    diffuse: torch.Tensor     # [R, 3]
+    ambient: torch.Tensor     # [R, 3]
+    specular: torch.Tensor    # [R, 3]
+    mirror: torch.Tensor      # [R]
+    shininess: torch.Tensor   # [R]
+    shadowable: torch.Tensor  # [R] float 0/1
 
 
 class ShadeGeom(NamedTuple):
@@ -81,3 +103,43 @@ def pack_shade_geom(scene) -> ShadeGeom:
                           nrm9, flag, mat_f, tex_f, vp.new_zeros((T, 2)),
                           mat16[scene.tri_mat.long()]], dim=1)     # 32:48
     return ShadeGeom(tri_pack=tri_pack.contiguous(), mat16=mat16.contiguous())
+
+
+def resolve_hit(scene, o, d, kind, idx, geom: ShadeGeom) -> Hit:
+    """Recompute the surface interaction of each ray's recorded hit.
+
+    The triangle branch of the reference's ``resolve_hit``: one row
+    gather from ``tri_pack``, the Cramer re-solve, the flat normal from
+    the vertices (PHONG meshes interpolate the corner normals,
+    unnormalised), the point re-projected onto the triangle plane and
+    the material from columns 32:48. Rays that hit no triangle get t 0,
+    a zero normal and mirror 0; every consumer gates on ``valid``.
+    """
+    ti = torch.clamp(torch.clamp(idx, min=0), max=scene.n_tris - 1).long()
+    rows48 = geom.tri_pack[ti]                        # [R, 48] one gather
+    p0, p1, p2 = rows48[:, 0:3], rows48[:, 3:6], rows48[:, 6:9]
+    t_t, alpha, beta = isx.ray_triangle(o, d, p0, p1, p2)
+    gamma = 1.0 - alpha - beta
+    n_flat = vm.normalize(vm.cross(p1 - p0, p2 - p0))
+    n0, n1, n2 = rows48[:, 16:19], rows48[:, 19:22], rows48[:, 22:25]
+    n_phong = alpha[:, None] * n0 + beta[:, None] * n1 + gamma[:, None] * n2
+    is_phong = rows48[:, 25] > 0.5
+    n_t = torch.where(is_phong[:, None], n_phong, n_flat)
+
+    is_t = kind == KIND_TRI
+    zero = torch.zeros_like(t_t)
+    t = torch.where(is_t, t_t, zero)
+    normal = torch.where(is_t[:, None], n_t, torch.zeros_like(n_t))
+    valid = kind != KIND_MISS
+    point = o + t[:, None] * d
+    # fp32 re-projection onto the exact plane (the identity in real
+    # arithmetic): keeps near-tangent hits from self-shadowing
+    point = torch.where(
+        is_t[:, None],
+        point - vm.dot(n_flat, point - p2)[:, None] * n_flat, point)
+    mat = rows48[:, 32:48]
+    return Hit(valid=valid, t=t, point=point, normal=normal,
+               diffuse=mat[:, 0:3], ambient=mat[:, 3:6],
+               specular=mat[:, 6:9],
+               mirror=torch.where(valid, mat[:, 10], zero),
+               shininess=mat[:, 9], shadowable=mat[:, 11])

@@ -35,3 +35,30 @@ def normalize(a: torch.Tensor) -> torch.Tensor:
                       torch.reciprocal(torch.sqrt(torch.clamp(n2, min=EPS_NORMALIZE))),
                       torch.zeros_like(n2))
     return a * inv[..., None]
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Reflect incident direction ``d`` about normal ``n``: ``d - 2 (d.n) n``
+    (the mirror bounce)."""
+    return d - 2.0 * dot(d, n)[..., None] * n
+
+
+def mirror(l: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror a light vector about normal ``n``: ``2 (l.n) n - l`` (the
+    specular term's reflected light direction)."""
+    return 2.0 * dot(l, n)[..., None] * n - l
+
+
+def det2(a, b, c, d):
+    """2x2 determinant ``a d - b c``."""
+    return a * d - b * c
+
+
+def det3(c1: torch.Tensor, c2: torch.Tensor, c3: torch.Tensor) -> torch.Tensor:
+    """3x3 determinant from three column vectors ``[..., 3]``, by cofactor
+    expansion along the first row (the Cramer solve's form)."""
+    return (
+        c1[..., 0] * det2(c2[..., 1], c3[..., 1], c2[..., 2], c3[..., 2])
+        - c2[..., 0] * det2(c1[..., 1], c3[..., 1], c1[..., 2], c3[..., 2])
+        + c3[..., 0] * det2(c1[..., 1], c2[..., 1], c1[..., 2], c2[..., 2])
+    )

@@ -11,7 +11,11 @@ Tolerances: phase-1 keys and shading outputs within rtol 1e-5 / atol
 1e-6 with integer outputs exact (same fp32 expressions in the same order;
 the shading kernels are built without FMA contraction). The cluster scan
 is built with contraction: hit ids and occlusion agree on >= 99.5% of
-rays, t within rtol 5e-5 where the ids agree (the reference's bars).
+rays, t within rtol 5e-5 where the ids agree (the reference's bars). The
+shade-segment backward (K6) sums its light and env cotangents with
+atomics, and index_add_ sums the row cotangents per triangle, both in a
+run-dependent order: cotangents within 3e-5 * max|plain| (the
+reference's bar for its hand-derived VJP).
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from myraytracer_tpu_torch.models.scene import Scene
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import shade, tracer as tr
+from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.ops.render import primary_rays_blocked, render
 from myraytracer_tpu_torch.scenes.golden import scene_08_office
@@ -188,3 +193,104 @@ def test_wrappers_reject_bad_inputs(cuda):
         cc.phase1_exact(o4, d4, t0, act.float(), cc.cluster_boxes(data))
     with pytest.raises(ValueError, match="bb"):
         cc.phase1_exact(o4, d4, t0, act, cc.cluster_boxes(data).cpu())
+
+
+def _segment_inputs(dev, n_lights, seed=7, R=5000):
+    """Rays that really hit their recorded triangle (random barycentrics),
+    plus misses, dead rays, degenerate triangles and unlit rays."""
+    data, rng = _random_scene(seed, 400, dev)
+    tri_pack = shade.pack_shade_geom(data).tri_pack.clone()
+    T = tri_pack.shape[0]
+    degen = torch.arange(T, device=dev) < 20          # zero-area rows
+    tri_pack[degen, 3:6] = tri_pack[degen, 0:3]
+    tri_pack[T // 2:, 25] = 1.0                       # half PHONG
+    tri_pack[:, 16:25] = torch.from_numpy(
+        rng.normal(size=(T, 9)).astype(np.float32)).to(dev)
+    tri_pack[:, 42] = 0.3                             # mirrors
+    ti = rng.integers(0, T, R)
+    bary = rng.dirichlet((1.0, 1.0, 1.0), R).astype(np.float32)
+    pk = tri_pack.cpu().numpy()
+    hitp = (bary[:, :1] * pk[ti, 0:3] + bary[:, 1:2] * pk[ti, 3:6]
+            + bary[:, 2:3] * pk[ti, 6:9])
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = hitp - rng.uniform(1.0, 20.0, (R, 1)).astype(np.float32) * d
+    u = rng.uniform(size=R)
+    is_t = u < 0.75
+    h = is_t.copy()
+    miss = (u >= 0.75) & (u < 0.9)                    # the rest are dead
+    L = n_lights
+    lp = rng.uniform(-8, 8, (L, 3)).astype(np.float32)
+    lc = rng.uniform(0.2, 1.0, (L, 3)).astype(np.float32)
+    lit = (rng.uniform(size=(L, R)) > 0.3).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (t(o), t(d), t(rng.uniform(0.2, 1.0, R).astype(np.float32)),
+            tri_pack.contiguous(), t(ti.astype(np.int32)), t(lp), t(lc),
+            t(np.float32([0.2, 0.15, 0.1])), t(np.float32([0.05, 0.1, 0.3])),
+            t(is_t), t(h), t(miss), t(lit))
+    cots = [t(rng.normal(size=s).astype(np.float32))
+            for s in ((R, 3), (R, 3), (R, 3), (R,))]
+    # a ray on a degenerate row keeps the point at t = INF: no bounce
+    # cotangent there, or the exact reverse is inf * 0
+    on_degen = degen[args[4].long()]
+    cots[1][on_degen] = 0.0
+    return args, cots
+
+
+def _close_scaled(got, want, name, rel=3e-5):
+    tol = rel * max(float(want.abs().max()), 1e-3)
+    assert bool(torch.isfinite(want).all()), name
+    torch.testing.assert_close(got, want, rtol=0.0, atol=tol, msg=name)
+
+
+@pytest.mark.parametrize("n_lights", [1, 2])
+def test_shade_segment_kernels_match_plain(cuda, n_lights):
+    args, cots = _segment_inputs(cuda, n_lights)
+    before = dict(LAUNCHES)
+    fwd = sg.segment_fwd(*args)
+    assert LAUNCHES["seg_fwd"] == before["seg_fwd"] + 1
+    for name, a, b in zip(("add", "o2", "d2", "w2"), fwd,
+                          sg.segment_plain(*args)):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=name)
+    bwd = sg.segment_bwd(*args, *cots)
+    assert LAUNCHES["seg_bwd"] == before["seg_bwd"] + 1
+    names = ("g_o", "g_d", "g_w", "g_rows", "g_light_pos", "g_light_color",
+             "g_ambience", "g_background")
+    for name, a, b in zip(names, bwd, sg.segment_bwd_plain(*args, *cots)):
+        assert a.shape == b.shape, name
+        _close_scaled(a, b, name)
+
+
+def test_shade_segment_function_on_cuda(cuda):
+    """ShadeSegment launches K5 and K6 and sums the row cotangents into
+    tri_pack like the plain versions."""
+    args, cots = _segment_inputs(cuda, 2, seed=8)
+    grads = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_(True) if i in (0, 1, 2, 3, 5, 6, 7, 8)
+                  else a for i, a in enumerate(args)]
+        out = sg.ShadeSegment.apply(*leaves, plain)
+        loss = sum((o * c).sum() for o, c in zip(out, cots))
+        diff = [leaves[i] for i in (0, 1, 2, 3, 5, 6, 7, 8)]
+        grads.append(torch.autograd.grad(loss, diff))
+    for name, a, b in zip(("o", "d", "w", "tri_pack", "light_pos",
+                           "light_color", "ambience", "background"), *grads):
+        _close_scaled(a, b, name)
+
+
+def test_shade_segment_wrappers_reject_bad_inputs(cuda):
+    args, cots = _segment_inputs(cuda, 1, seed=9, R=600)
+    bad_idx = list(args)
+    bad_idx[4] = args[4].long()
+    with pytest.raises(ValueError, match="tri_idx"):
+        sg.segment_fwd(*bad_idx)
+    bad_mask = list(args)
+    bad_mask[9] = args[9].int()
+    with pytest.raises(ValueError, match="is_t"):
+        sg.segment_bwd(*bad_mask, *cots)
+    bad_lit = list(args)
+    bad_lit[12] = args[12][:, :-1].contiguous()
+    with pytest.raises(ValueError, match="lit"):
+        sg.segment_fwd(*bad_lit)
+    with pytest.raises(ValueError, match="g_w2"):
+        sg.segment_bwd(*args, *cots[:3], cots[3].cpu())

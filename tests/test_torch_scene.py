@@ -132,12 +132,16 @@ def test_imports_without_jax():
             "sys.modules['myraytracer_tpu'] = None; "
             "import myraytracer_tpu_torch as m; "
             "from myraytracer_tpu_torch.ops import render, tracer, cuda_shade; "
+            "from myraytracer_tpu_torch.ops import refit, shade_grad; "
+            "from myraytracer_tpu_torch.parallel import shard_render; "
             "from myraytracer_tpu_torch.scenes import golden; "
-            "print(m.render.__module__)")
+            "print(m.render.__module__, m.render_loss_grad_image.__module__, "
+            "m.split_params.__module__)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "myraytracer_tpu_torch.ops.render" in out.stdout
+    assert "myraytracer_tpu_torch.parallel.shard_render" in out.stdout
 
 
 def test_camera_rays_match_reference():
