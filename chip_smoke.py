@@ -24,7 +24,30 @@ nvcc. Phases:
   9. the training step at 1920x1080 through the kernels, warm, three
      times (launch counts of that run, median seconds, rays/s, finite
      loss and gradients), then three Adam steps on mat_diffuse and
-     light_color toward a darker render: the loss must fall.
+     light_color toward a darker render: the loss must fall;
+ 10. K3 and K4 against their plain versions on the first Whitted segment
+     of o_04 (spheres and planes, two lights), of o_10 (textured meshes)
+     and of the mixed scene at 1920x1080 (every hit kind, a cylinder):
+     errors, id agreement, both times;
+ 11. the golden gallery: each of the ten goldens at its golden
+     resolution through render_aa, warm, three times (median seconds,
+     launch counts of that run, peak device memory), held against its
+     plain-version run (>= 99.5% of pixels within 1e-4) and against the
+     committed outputs/<name>.png (mean 8x8 cell delta below 1e-3,
+     >= 99% of pixels within 2/255); the mixed scene at 1920x1080
+     through render_aa;
+ 12. office at 1920x1080 through render_aa, warm, three times, with the
+     AA budget sized from the pass-1 image as bench.py sizes it, and
+     whether that budget covers every pixel above the threshold.
+
+Every kernel entry of the JSON summary carries its bound: the larger of
+the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and the operations these inputs need over 67 TFLOP/s
+(fp32, H100 SXM data sheet); the operation counts per ray, box or
+triangle test are estimates from the plain versions' expressions. Both
+count what this run's data needs: a gathered table only the distinct
+rows its indices select, and the scans the slab tests, visits and real
+triangles (not padded slots) that the plain scan counts on these inputs.
 
 Prints one JSON line with the per-kernel summary, then a final JSON status
 line. Any failed check raises and the exit code is non-zero; without a
@@ -59,6 +82,33 @@ KERNELS = (
     ("seg_bwd", "myraytracer_tpu_torch/csrc/shade_grad.cu",
      "myraytracer_tpu/ops/shade_grad.py:516"),
 )
+
+#: K3/K4's analytic and texture branches, each its own summary entry:
+#: (entry, launch counter, source, TPU kernel, the scene whose first
+#: segment compares it and whose render_aa run counts its launches)
+BRANCHES = tuple(
+    (f"{k}[{case}]", k, "myraytracer_tpu_torch/csrc/shade.cu",
+     f"myraytracer_tpu/ops/pallas_shade.py:{line}", scene)
+    for case, scene in (("analytic", "o_04_molecule"),
+                        ("texture", "o_10_pokemon"),
+                        ("mixed", "mixed_1080p"))
+    for k, line in (("shade_pre", 143), ("shade_phong", 336)))
+
+#: peak rates of one H100 SXM (data sheet): HBM bytes/s, fp32 FLOP/s
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+
+#: operation estimates from the plain versions' expressions: a slab test
+#: (K2, and the scan's per-pair box test), one ray-triangle slot solve
+#: (K1), the per-ray shading work by hit kind and per light (K3, K4), and
+#: the shade segment (K5; K6 about three times K5)
+OPS_SLAB, OPS_TRI = 24, 51
+OPS_PRE = {"tri": 110, "texture": 25, "sphere": 20, "plane": 12,
+           "cylinder": 35, "ray": 10, "light": 30}
+OPS_PHONG_RAY, OPS_PHONG_LIGHT = 30, 45
+OPS_SEG_RAY, OPS_SEG_LIGHT, BWD_OVER_FWD = 150, 45, 3
+
+#: the gallery's bars: kernels vs plain, and vs the committed PNGs
+GALLERY_AGREE, PNG_CELL_MEAN, PNG_PIX, PNG_PIX_FRAC = 0.995, 1e-3, 2 / 255, 0.99
 
 #: kernels each path must launch: the forward render, the training step
 FWD_KERNELS = ("phase1_exact", "cluster_scan_closest", "cluster_scan_anyhit",
@@ -111,6 +161,41 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rows(table, idx) -> int:
+    """Bytes of the distinct rows of ``table`` that the indices ``idx``
+    read: a gathered table counts what this run's data reads of it."""
+    import torch
+
+    n = torch.unique(idx).numel() if idx.numel() else 0
+    return n * table[0].numel() * table.element_size()
+
+
+def bound(n_bytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the fp32 rate."""
+    tb, to = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to else
+                "operations", library_ms=None)
+
+
+def cells(img, grid: int = 8):
+    """Mean colour of each cell of a grid x grid partition of [H, W, 3]."""
+    import numpy as np
+
+    h, w, _ = img.shape
+    ys = np.linspace(0, h, grid + 1).astype(int)
+    xs = np.linspace(0, w, grid + 1).astype(int)
+    out = np.zeros((grid, grid, 3), np.float32)
+    for i in range(grid):
+        for j in range(grid):
+            out[i, j] = img[ys[i]:ys[i + 1], xs[j]:xs[j + 1]].mean((0, 1))
+    return out
+
+
 def close(name, got, want, rtol=RTOL) -> float:
     """Max abs diff of two float tensors; checks rtol/atol."""
     diff = (got - want).abs()
@@ -157,7 +242,9 @@ def compare_kernels(data, camera, report):
     report["phase1_exact"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: cc.phase1_exact(o4, d4, t0, act, bb), 10),
-        plain_ms=time_ms(lambda: cc.phase1_exact_plain(o4, d4, t0, act, bb), 2))
+        plain_ms=time_ms(lambda: cc.phase1_exact_plain(o4, d4, t0, act, bb), 2),
+        **bound(nbytes(o4, d4, t0, act, bb, key),
+                OPS_SLAB * o4.shape[0] * bb.shape[0]))
     print(f"phase1_exact: S={key.shape[0]} K={key.shape[1]} "
           f"touched/subgroup={float(touched.sum(1).float().mean()):.1f} "
           f"max_abs_err={err}")
@@ -167,7 +254,8 @@ def compare_kernels(data, camera, report):
     scan_args = (o4, d4, t0, act, bb, pack.cl_const, order, lb, n,
                  data.cl_first, data.cl_count, False)
     tk, ik = cc.cluster_scan(*scan_args)
-    tp, ip = cc.cluster_scan_plain(*scan_args)
+    work = {}
+    tp, ip = cc.cluster_scan_plain(*scan_args, stats=work)
     agree = float((ik == ip).float().mean())
     check(agree >= ID_AGREE, f"cluster_scan_closest: id agreement {agree}")
     same = (ik == ip) & (ik >= 0)
@@ -175,7 +263,8 @@ def compare_kernels(data, camera, report):
     report["cluster_scan_closest"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: cc.cluster_scan(*scan_args), 10),
-        plain_ms=time_ms(lambda: cc.cluster_scan_plain(*scan_args), 2))
+        plain_ms=time_ms(lambda: cc.cluster_scan_plain(*scan_args), 2),
+        **scan_bound(scan_args, (tk, ik), work))
     print(f"cluster_scan_closest: hits={float((ik >= 0).float().mean()):.4f} "
           f"id_agreement={agree} max_abs_err(t)={err}")
 
@@ -186,55 +275,140 @@ def compare_kernels(data, camera, report):
     tri_idx = torch.clamp(idx, min=0).contiguous()
     live_i = live.to(torch.int32)
     pre_args = (o, d, t.contiguous(), kind, live_i, tri_idx,
-                pack.geom.tri_pack, pack.geom.mat16, data.light_pos)
-    pre = cs.shade_pre(*pre_args)
-    pre_p = cs.shade_pre_plain(*pre_args)
-    err = 0.0
-    for i, name in enumerate(("point", "normal", "mid", "so", "sd", "st", "sact")):
-        if pre[i].dtype == torch.int32:
-            n_bad = int((pre[i] != pre_p[i]).sum())
-            check(n_bad == 0, f"shade_pre: {name} differs on {n_bad} rays")
-        else:
-            err = max(err, close(f"shade_pre.{name}", pre[i], pre_p[i]))
-    report["shade_pre"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: cs.shade_pre(*pre_args), 20),
-        plain_ms=time_ms(lambda: cs.shade_pre_plain(*pre_args), 5))
-    print(f"shade_pre: shadow rays active={float(pre[6].float().mean()):.4f} "
-          f"max_abs_err={err}")
+                torch.zeros_like(tri_idx), pack.geom.tri_pack,
+                pack.geom.ana16, pack.geom.mat16, data.light_pos,
+                data.texels.shape[0])
+    pre, report["shade_pre"] = compare_pre("shade_pre", data, pre_args)
 
     # K1' any-hit on the shadow batch (hull phase-1)
-    _, _, _, so, sd, st, sact = pre
+    so, sd, st, sact = pre[4:]
     so4, sd4, st0, sact_p = cc.pad_rays(so, sd, st, sact > 0)
     hkey = cc.phase1_keys(data, so4, sd4, st0, sact_p, True, True)
     horder, hlb, hn = cc.visit_lists(hkey)
     any_args = (so4, sd4, st0, sact_p, bb, pack.cl_const, horder, hlb, hn,
                 data.cl_first, data.cl_count, True)
-    _, oi = cc.cluster_scan(*any_args)
-    _, oi_p = cc.cluster_scan_plain(*any_args)
+    t_any, oi = cc.cluster_scan(*any_args)
+    work = {}
+    _, oi_p = cc.cluster_scan_plain(*any_args, stats=work)
     occ, occ_p = oi >= 0, oi_p >= 0
     agree = float((occ == occ_p).float().mean())
     check(agree >= ID_AGREE, f"cluster_scan_anyhit: occlusion agreement {agree}")
     report["cluster_scan_anyhit"] = dict(
         max_abs_err=float((occ.float() - occ_p.float()).abs().max()),
         ms=time_ms(lambda: cc.cluster_scan(*any_args), 10),
-        plain_ms=time_ms(lambda: cc.cluster_scan_plain(*any_args), 2))
+        plain_ms=time_ms(lambda: cc.cluster_scan_plain(*any_args), 2),
+        **scan_bound(any_args, (t_any, oi), work))
     print(f"cluster_scan_anyhit: occluded={float(occ.float().mean()):.4f} "
           f"agreement={agree}")
 
     # K4
     shadow = occ[:L * R].to(torch.int32).reshape(L, R).contiguous()
+    report["shade_phong"] = compare_phong("shade_phong", data, pack, o, d,
+                                          kind, live_i, pre, shadow)
+
+
+def scan_bound(args, outs, work: dict) -> dict:
+    """K1/K1''s bound from the work this run's data needs, as the plain
+    scan counts it (``work``, its ``stats``): the rays and results once,
+    an order and a lb entry per (subgroup, step) visit, the tables of the
+    visited clusters; a slab test for each ray still searching in a
+    visited subgroup, and one slot solve for each real triangle of a
+    touched (ray, cluster) pair (not the M padded slots; K1' stops at a
+    pair's first occluding slot)."""
+    o4, d4, t0, act, bb, cl_const, order, lb, n_touched, first, count = \
+        args[:11]
+    per_cluster = nbytes(bb[0], cl_const[0], first[:1], count[:1])
+    n_bytes = (nbytes(o4, d4, t0, act, n_touched, *outs)
+               + work.get("visits", 0) * (order.element_size()
+                                          + lb.element_size())
+               + len(work.get("clusters", ())) * per_cluster)
+    return bound(n_bytes, work.get("slabs", 0) * OPS_SLAB
+                 + work.get("tris", 0) * OPS_TRI)
+
+
+def pre_ops(kind, texid, L: int) -> float:
+    """K3's operations on these rays, by hit kind (OPS_PRE)."""
+    from myraytracer_tpu_torch.ops import shade
+
+    n = {k: int((kind == v).sum()) for k, v in (
+        ("tri", shade.KIND_TRI), ("sphere", shade.KIND_SPHERE),
+        ("plane", shade.KIND_PLANE), ("cylinder", shade.KIND_CYL))}
+    n["texture"] = int((texid >= 0).sum())
+    R = kind.shape[0]
+    return (sum(OPS_PRE[k] * v for k, v in n.items())
+            + R * (OPS_PRE["ray"] + L * OPS_PRE["light"]))
+
+
+def pre_bytes(pre_args, pre) -> int:
+    """K3's bytes on these rays: the per-ray columns it reads (t of a hit,
+    each index of its kind), the table rows they select, its outputs."""
+    from myraytracer_tpu_torch.ops import shade
+
+    o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16, mat16, lp = \
+        pre_args[:11]
+    is_t = kind == shade.KIND_TRI
+    is_a = (kind == shade.KIND_SPHERE) | (kind == shade.KIND_PLANE) | (
+        kind == shade.KIND_CYL)
+    valid = kind != shade.KIND_MISS
+    return (nbytes(o, d, kind, live, lp, t[valid], tri_idx[is_t], aidx[is_a],
+                   *pre)
+            + rows(tri_pack, tri_idx[is_t]) + rows(ana16, aidx[is_a])
+            + rows(mat16, pre[2][valid]))
+
+
+def compare_pre(name, data, pre_args):
+    """K3 vs its plain version: ints equal, floats within the bar; times."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import cuda_shade as cs
+
+    pre = cs.shade_pre(*pre_args)
+    pre_p = cs.shade_pre_plain(*pre_args)
+    err = 0.0
+    for i, nm in enumerate(("point", "normal", "mid", "texid", "so", "sd",
+                            "st", "sact")):
+        if pre[i].dtype == torch.int32:
+            n_bad = int((pre[i] != pre_p[i]).sum())
+            check(n_bad == 0, f"{name}: {nm} differs on {n_bad} rays")
+        else:
+            err = max(err, close(f"{name}.{nm}", pre[i], pre_p[i]))
+    rep = dict(max_abs_err=err, ms=time_ms(lambda: cs.shade_pre(*pre_args), 20),
+               plain_ms=time_ms(lambda: cs.shade_pre_plain(*pre_args), 5),
+               **bound(pre_bytes(pre_args, pre),
+                       pre_ops(pre_args[3], pre[3], data.n_lights)))
+    print(f"{name}: {pre_args[0].shape[0]} rays, shadow rays active="
+          f"{float(pre[7].float().mean()):.4f}, textured="
+          f"{float((pre[3] >= 0).float().mean()):.4f}, max_abs_err={err}, "
+          f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.3f} ms")
+    return pre, rep
+
+
+def compare_phong(name, data, pack, o, d, kind, live_i, pre, shadow):
+    """K4 vs its plain version on K3's outputs and a shadow mask; times."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import cuda_shade as cs
+    from myraytracer_tpu_torch.ops import shade
+
+    R, L = o.shape[0], data.n_lights
     valid = (kind != shade.KIND_MISS).to(torch.int32)
     weight = torch.ones(R, device=o.device)
-    phong_args = (o, d, weight, valid, live_i, pre[2], pre[0], pre[1], shadow,
-                  pack.geom.mat16, data.light_pos, data.light_color, pack.env)
-    ph = cs.shade_phong(*phong_args)
-    ph_p = cs.shade_phong_plain(*phong_args)
-    err = max(close(f"shade_phong.{nm}", a, b)
+    args = (o, d, weight, valid, live_i, pre[2], pre[3], pre[0], pre[1],
+            shadow, pack.geom.mat16, data.texels, data.light_pos,
+            data.light_color, pack.env)
+    ph = cs.shade_phong(*args)
+    ph_p = cs.shade_phong_plain(*args)
+    err = max(close(f"{name}.{nm}", a, b)
               for nm, a, b in zip(("add", "o2", "d2", "w2"), ph, ph_p))
-    report["shade_phong"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: cs.shade_phong(*phong_args), 20),
-        plain_ms=time_ms(lambda: cs.shade_phong_plain(*phong_args), 5))
-    print(f"shade_phong: max_abs_err={err}")
+    rep = dict(max_abs_err=err, ms=time_ms(lambda: cs.shade_phong(*args), 20),
+               plain_ms=time_ms(lambda: cs.shade_phong_plain(*args), 5),
+               **bound(nbytes(*args[:10], *args[12:], *ph)
+                       + rows(pack.geom.mat16, pre[2][valid > 0])
+                       + rows(data.texels, pre[3][pre[3] >= 0]),
+                       R * (OPS_PHONG_RAY + L * OPS_PHONG_LIGHT)))
+    print(f"{name}: max_abs_err={err}, {rep['ms']:.4f} ms vs plain "
+          f"{rep['plain_ms']:.3f} ms")
+    return rep
 
 
 def compare_segment_kernels(data, camera, report):
@@ -264,9 +438,13 @@ def compare_segment_kernels(data, camera, report):
     fwd, fwd_p = sg.segment_fwd(*args), sg.segment_plain(*args)
     err = max(close(f"seg_fwd.{nm}", a, b)
               for nm, a, b in zip(("add", "o2", "d2", "w2"), fwd, fwd_p))
+    L = data.n_lights
+    seg_ops = R * (OPS_SEG_RAY + L * OPS_SEG_LIGHT)
+    tri_rows = rows(pack.geom.tri_pack, ti[args[9]])
     report["seg_fwd"] = dict(
         max_abs_err=err, ms=time_ms(lambda: sg.segment_fwd(*args), 20),
-        plain_ms=time_ms(lambda: sg.segment_plain(*args), 3))
+        plain_ms=time_ms(lambda: sg.segment_plain(*args), 3),
+        **bound(nbytes(*args[:3], *args[4:], *fwd) + tri_rows, seg_ops))
     print(f"seg_fwd: {R} rays, hits {float(args[10].float().mean()):.4f}, "
           f"max_abs_err={err}")
 
@@ -291,7 +469,9 @@ def compare_segment_kernels(data, camera, report):
     report["seg_bwd"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: sg.segment_bwd(*args, *cots), 20),
-        plain_ms=time_ms(lambda: sg.segment_bwd_plain(*args, *cots), 3))
+        plain_ms=time_ms(lambda: sg.segment_bwd_plain(*args, *cots), 3),
+        **bound(nbytes(*args[:3], *args[4:], *cots, *bwd) + tri_rows,
+                BWD_OVER_FWD * seg_ops))
     print(f"seg_bwd: max_abs_err={err}, worst diff {worst:.3g} * max|plain| "
           f"(bar {REL_COT}); {n_inf} non-finite entries, equal in both")
 
@@ -352,6 +532,179 @@ def train_steps(data, camera, steps: int = 3) -> list:
             v.grad = grads[k]
         opt.step()
     return losses
+
+
+def first_segment(data, camera, dev):
+    """The inputs K3 and K4 get on a frame's first Whitted segment, from
+    the kernels' own hits: (pack, o, d, kind, live_i, K3's arguments)."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import shade, tracer as tr
+    from myraytracer_tpu_torch.ops.render import primary_rays_blocked
+
+    pack = tr.pack_trace(data)
+    o, d = primary_rays_blocked(camera, dev)
+    live = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+    kind, pidx, aidx, t = tr.closest_hit(data, pack, o, d, live)
+    valid = kind != shade.KIND_MISS
+    zero = torch.zeros_like(pidx)
+    live_i = live.to(torch.int32)
+    pre_args = (o, d, t.contiguous(), kind, live_i,
+                torch.where(kind == shade.KIND_TRI, pidx, zero).contiguous(),
+                torch.where(valid, aidx, zero).contiguous(),
+                pack.geom.tri_pack, pack.geom.ana16, pack.geom.mat16,
+                data.light_pos, data.texels.shape[0])
+    return pack, o, d, kind, live_i, pre_args
+
+
+def compare_branch_kernels(scenes, dev, report):
+    """Phase 10: K3/K4's analytic and texture branches vs their plain
+    versions on the first segment of o_04, o_10 and the mixed 1080p
+    scene, with the real shadow mask."""
+    from myraytracer_tpu_torch.ops import shade, tracer as tr
+
+    for case, key in (("analytic", "o_04_molecule"),
+                      ("texture", "o_10_pokemon"), ("mixed", "mixed_1080p")):
+        scene, data = scenes[key]
+        pack, o, d, kind, live_i, pre_args = first_segment(
+            data, scene.camera, dev)
+        hit_kinds = sorted(set(kind[kind != shade.KIND_MISS].tolist()))
+        print(f"{key}: first segment, {o.shape[0]} rays, hit kinds "
+              f"{hit_kinds}, {data.n_lights} light(s)")
+        pre, report[f"shade_pre[{case}]"] = compare_pre(
+            f"shade_pre[{case}]", data, pre_args)
+        so, sd, st, sact = pre[4:]
+        shadow = tr.shadow_mask(data, pack, so, sd, st, sact).reshape(
+            data.n_lights, -1).contiguous()
+        report[f"shade_phong[{case}]"] = compare_phong(
+            f"shade_phong[{case}]", data, pack, o, d, kind, live_i, pre,
+            shadow)
+        want = {"analytic": {shade.KIND_SPHERE, shade.KIND_PLANE},
+                "texture": {shade.KIND_TRI},
+                "mixed": {shade.KIND_SPHERE, shade.KIND_PLANE,
+                          shade.KIND_TRI, shade.KIND_CYL}}[case]
+        check(set(hit_kinds) == want, f"{key}: hit kinds {hit_kinds}")
+        if case == "texture":
+            check(bool((pre[3] >= 0).any()), f"{key}: no textured hit")
+
+
+def timed(fn, reps: int = 3):
+    """(result, seconds per call, launches of those calls) after one warm
+    call; the counts are set to 0 just before the timed calls."""
+    import torch
+
+    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    fn()
+    torch.cuda.synchronize()
+    reset_launches()
+    secs = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    return out, secs, dict(LAUNCHES)
+
+
+def gallery(scenes, dev, report):
+    """Phase 11: every golden at its golden resolution through render_aa,
+    against its plain-version run and the committed PNG; and the mixed
+    scene at 1920x1080."""
+    import numpy as np
+    import torch
+
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render_aa
+    from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
+    from myraytracer_tpu_torch.utils.image import read_png
+
+    for name, (_, budget) in list(GOLDEN_SCENES.items()) + [
+            ("mixed_1080p", (None, 0.1))]:
+        scene, data = scenes[name]
+        cam = scene.camera
+        torch.cuda.reset_peak_memory_stats()
+        img, secs, launches = timed(
+            lambda: render_aa(data, cam, budget_frac=budget))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        plain = render_aa(data, cam, budget_frac=budget,
+                          cfg=tr.TraceConfig(plain=True))
+        diff = (img - plain).abs().amax(dim=-1)
+        agree = float((diff <= 1e-4).float().mean())
+        img_np = img.cpu().numpy()
+        line = (f"{name} {cam.width}x{cam.height} render_aa (budget "
+                f"{budget}): median {statistics.median(secs):.4f} s of "
+                f"{secs}, peak memory {peak:.3f} GiB, vs plain {agree:.6f} "
+                f"within 1e-4")
+        check(tuple(img.shape) == (cam.height, cam.width, 3),
+              f"{name}: image shape {tuple(img.shape)}")
+        check(bool(np.isfinite(img_np).all()), f"{name}: image not finite")
+        check(agree >= GALLERY_AGREE, f"{name}: {agree} of pixels within 1e-4 "
+              f"of the plain versions' image")
+        png = os.path.join(REPO, "outputs", f"{name}.png")
+        if os.path.exists(png):
+            ref = read_png(png)
+            cell = float(np.abs(cells(img_np) - cells(ref)).mean())
+            pix = float((np.abs(img_np - ref).max(axis=-1)
+                         <= PNG_PIX + 1e-6).mean())
+            line += (f"; vs {os.path.relpath(png, REPO)}: mean 8x8 cell "
+                     f"delta {cell:.3g}, {pix:.6f} of pixels within 2/255")
+            check(cell < PNG_CELL_MEAN, f"{name}: cell delta {cell}")
+            check(pix >= PNG_PIX_FRAC, f"{name}: {pix} of pixels within 2/255")
+        else:
+            check(name == "mixed_1080p", f"{png} is missing")
+        print(line + f"; launches {launches}")
+        path = FWD_KERNELS if data.n_tris else ("shade_pre", "shade_phong")
+        for k in path:
+            check(launches[k] > 0, f"{name}: {k} was not launched")
+        for entry, counter, _, _, scn in BRANCHES:
+            if scn == name:
+                report[entry]["launches"] = launches[counter]
+        del img, plain
+
+
+def office_aa(data, camera):
+    """Phase 12: office 1920x1080 through render_aa, with the budget sized
+    from the pass-1 image as bench.py sizes it."""
+    import math
+
+    import torch
+
+    from myraytracer_tpu_torch.ops.render import (AA_THRESHOLD, _deviation,
+                                                  aa_budget_covered, render,
+                                                  render_aa)
+
+    img1 = render(data, camera)
+    frac = float((_deviation(img1) > AA_THRESHOLD).float().mean())
+    budget = max(0.01, math.ceil(frac * 1.1 / 0.0025) * 0.0025)
+    covered = aa_budget_covered(img1, budget)
+    img, secs, launches = timed(
+        lambda: render_aa(data, camera, budget_frac=budget))
+    med = statistics.median(secs)
+    print(f"render_aa {camera.width}x{camera.height}: above-threshold "
+          f"fraction {frac:.4f} -> budget {budget}, aa_budget_covered "
+          f"{covered}; median {med:.4f} s of {secs}, "
+          f"{camera.width * camera.height / med:.4g} rays/s, launches "
+          f"{launches}")
+    check(covered, "the office AA budget does not cover its pixels")
+    check(bool(torch.isfinite(img).all()), "office render_aa not finite")
+    for k in FWD_KERNELS:
+        check(launches[k] > 0, f"office render_aa: {k} was not launched")
+
+
+def build_gallery(dev):
+    """The ten goldens at their golden resolution, and the mixed scene at
+    1920x1080, on the card: name -> (Scene, SceneData)."""
+    from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
+    from myraytracer_tpu_torch.scenes.kinds import mixed_scene
+
+    t = time.perf_counter()
+    scenes = {name: builder() for name, (builder, _) in GOLDEN_SCENES.items()}
+    scenes["mixed_1080p"] = mixed_scene(mirror=0.3, w=1920, h=1080)
+    out = {name: (s, s.build(device=dev)) for name, s in scenes.items()}
+    print(f"gallery: {len(out)} scenes built in "
+          f"{time.perf_counter() - t:.2f} s")
+    return out
 
 
 def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
@@ -441,6 +794,12 @@ def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
     losses = train_steps(data, scene.camera)
     print(f"Adam on mat_diffuse, light_color: losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+
+    scenes = build_gallery(dev)
+    compare_branch_kernels(scenes, dev, report)
+    gallery(scenes, dev, report)
+    del scenes
+    office_aa(data, scene.camera)
     return report
 
 
@@ -471,8 +830,14 @@ def main() -> int:
             print("  " + line.strip())
 
     report = run()
+    entries = [(n, src, rep) for n, src, rep in KERNELS] + [
+        (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    **report[name]) for name, src, rep in KERNELS]
+                    **report[name]) for name, src, rep in entries]
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    for e in summary:
+        check(all(k in e for k in keys), f"{e['name']}: summary keys")
     print(json.dumps({"kernels": summary}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,17 @@ Layout (module names follow the reference):
     ops/       cluster cut, cluster scan, shading, shade segment, refit,
                tracer, render and training entry points
     parallel/  split_params / merge_params of the training step
-    scenes/    procedural authoring of the office scene
-    utils/     vector math
+    scenes/    procedural authoring of the ten golden scenes and the
+               gallery entry point (python -m myraytracer_tpu_torch.scenes.golden)
+    utils/     vector math, PNG reading and writing
     kernels/   nvcc build and ctypes binding of csrc/*.cu
     csrc/      the CUDA kernels (cluster scan, phase-1, shading, shade
                segment forward and backward)
 
-Ported so far: the forward render and the training step (loss and
-scene-parameter gradients) of triangle-only, untextured scenes.
+Ported so far: the forward render with adaptive supersampling of every
+primitive kind (triangles, spheres, planes, cylinders) and of textured
+meshes, and the training step (loss and scene-parameter gradients) of
+triangle-only, untextured scenes.
 """
 
 __version__ = "0.1.0"
@@ -27,7 +30,8 @@ from myraytracer_tpu_torch.models.light import Light
 from myraytracer_tpu_torch.models.material import Material
 from myraytracer_tpu_torch.models.scene import (Scene, SceneData,
                                                 scenedata_from_arrays)
-from myraytracer_tpu_torch.ops.render import (render, render_loss_grad,
+from myraytracer_tpu_torch.ops.render import (render, render_aa,
+                                               render_loss_grad,
                                                render_loss_grad_image)
 from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
                                                          split_params)
@@ -40,6 +44,7 @@ __all__ = [
     "SceneData",
     "merge_params",
     "render",
+    "render_aa",
     "render_loss_grad",
     "render_loss_grad_image",
     "scenedata_from_arrays",

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 Every source under ``myraytracer_tpu_torch/csrc/`` compiles to an object
-and all objects link into one shared library with a plain C interface
-(no PyTorch headers, so the build takes seconds):
+(one nvcc process per source, all started together) and all objects link
+into one shared library with a plain C interface (no PyTorch headers, so
+the build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC [-fmad=false] -c csrc/<name>.cu
@@ -65,8 +66,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mrt_phase1_exact": [_P] * 6 + [_I] * 3 + [_P],
     "mrt_cluster_scan": [_P] * 13 + [_I] * 5 + [_P],
-    "mrt_shade_pre": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 3 + [_P] * 8,
-    "mrt_shade_phong": [_P] * 13 + [_I] * 3 + [_P] * 5,
+    "mrt_shade_pre": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 9,
+    "mrt_shade_phong": [_P] * 15 + [_I] * 3 + [_P] * 5,
     "mrt_seg_fwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
     "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
 }
@@ -123,13 +124,25 @@ def build() -> tuple[Path, str]:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-1]}")
 
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = []
+        # one nvcc per source, all started together
+        objs, procs = [], []
         for src in sorted(CSRC_DIR.glob("*.cu")):
             obj = Path(tmp) / f"{src.stem}.o"
             fma = ("-fmad=false",) if src.name in NO_FMA else ()
-            run([nvcc, *NVCC_FLAGS, *fma, "-Xptxas", "-v", "-c", src, "-o",
-                 obj])
+            cmd = [nvcc, *NVCC_FLAGS, *fma, "-Xptxas", "-v", "-c", src, "-o",
+                   obj]
+            procs.append(subprocess.Popen(
+                [str(c) for c in cmd], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
             objs.append(obj)
+        failed = []
+        for proc in procs:
+            out_text, _ = proc.communicate()
+            log.append(out_text)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{out_text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
         tmp_out = Path(tmp) / out.name
         run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_out, *objs])
         os.replace(tmp_out, out)
@@ -170,9 +183,11 @@ def launch(entry: str, counter: str, device: torch.device, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def check_inputs(name: str, device: torch.device, **tensors) -> None:
+def check_inputs(name: str, device: torch.device, widths=None,
+                 **tensors) -> None:
     """Raise unless every tensor is contiguous, on ``device``, with the
-    dtype its name ends in (``_f`` float32, ``_i`` int32, ``_b`` bool)."""
+    dtype its name ends in (``_f`` float32, ``_i`` int32, ``_b`` bool),
+    and unless each tensor named in ``widths`` is a [N, width] table."""
     for key, t in tensors.items():
         want = _DTYPES[key[-1]]
         if t.device != device or t.dtype != want or not t.is_contiguous():
@@ -180,3 +195,8 @@ def check_inputs(name: str, device: torch.device, **tensors) -> None:
                 f"{name}: {key[:-2]} must be a contiguous {want} tensor on "
                 f"{device}, got {t.dtype} on {t.device}"
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    for key, width in (widths or {}).items():
+        t = tensors[key]
+        if t.dim() != 2 or t.shape[1] != width:
+            raise ValueError(f"{name}: {key[:-2]} must be [N, {width}], got "
+                             f"{tuple(t.shape)}")

@@ -71,3 +71,12 @@ class Camera:
         d = vm.normalize(d)
         o = cam.eye.expand(d.shape)
         return o, d
+
+    def pixel_grid(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Integer pixel-centre coordinate grids (xs, ys), each [H, W]
+        float32 on ``device`` (the caller's: there is no default)."""
+        ys, xs = torch.meshgrid(
+            torch.arange(self.height, dtype=torch.float32, device=device),
+            torch.arange(self.width, dtype=torch.float32, device=device),
+            indexing="ij")
+        return xs, ys

@@ -419,8 +419,17 @@ class Scene:
         )
         return arrays, static
 
-    def build(self, device="cpu", leaf_size: int = 4, cluster_size: int = 128,
+    def build(self, device="cuda", leaf_size: int = 4, cluster_size: int = 128,
               builder: str = "sah") -> SceneData:
-        """Pack the scene (:meth:`pack`) into a SceneData on ``device``."""
+        """Pack the scene (:meth:`pack`) into a SceneData on ``device``.
+
+        The default is the GPU; without one this raises, and a caller who
+        wants the CPU says ``device="cpu"``.
+        """
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Scene.build: no CUDA device for device={str(device)!r}; "
+                "pass device='cpu' to build on the CPU")
         arrays, static = self.pack(leaf_size, cluster_size, builder)
         return scenedata_from_arrays(arrays, static, device)

@@ -10,7 +10,8 @@ screen blocks). For every subgroup:
             it. Closest-hit queries take the exact per-ray slab test
             (kernel K2, :func:`phase1_exact`); finite any-hit queries
             (shadow rays) take the conservative O(S*K) segment hull
-            (:func:`phase1_anyhit_hull`, torch ops).
+            (:func:`phase1_anyhit_hull`, torch ops) unless the caller
+            asks for the exact test.
   sort      one stable sort of the keys gives the visit order and the
             sorted lower bounds; n_touched counts the finite keys.
   scan      kernel K1 (:func:`cluster_scan`) walks each subgroup's list
@@ -238,30 +239,37 @@ def visit_lists(key: torch.Tensor
 # K1 / K1': the scan
 # ---------------------------------------------------------------------------
 
-def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit):
+def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit,
+                 stats=None):
     """One visit step of the plain scan for C subgroups.
 
     tc [C, 16, M] constants; count, first [C]; oc, dc, ivc [C, sub, 3];
-    tbc, ibc, ac [C, sub]; bbk [C, 6]. Returns updated (tb, ib).
+    tbc, ibc, ac [C, sub] (fresh copies: updated in place); bbk [C, 6].
+    Only the rays whose slab test touches their subgroup's cluster are
+    solved, each against the cluster's M slots. Returns (tb, ib).
     """
     hit, tmin = ray_aabb(oc, ivc, bbk[:, None, 0:3], bbk[:, None, 3:6])
-    touch = hit & ac & (tmin <= tbc)
-    if any_hit:
-        touch = touch & (ibc < 0)
-
-    o0, o1, o2 = oc[..., 0:1], oc[..., 1:2], oc[..., 2:3]   # [C, sub, 1]
-    d0, d1, d2 = dc[..., 0:1], dc[..., 1:2], dc[..., 2:3]
+    want = ac & (ibc < 0) if any_hit else ac
+    touch = hit & want & (tmin <= tbc)
+    ci, ri = torch.nonzero(touch, as_tuple=True)           # touching pairs
+    if stats is not None:
+        stats["slabs"] = stats.get("slabs", 0) + int(want.sum())
+    if ci.numel() == 0:
+        return tbc, ibc
+    tp = tc[ci]                                            # [N, 16, M]
+    o, d = oc[ci, ri], dc[ci, ri]                          # [N, 3]
+    o0, o1, o2 = o[:, 0:1], o[:, 1:2], o[:, 2:3]           # [N, 1]
+    d0, d1, d2 = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     w0 = o1 * d2 - o2 * d1
     w1 = o2 * d0 - o0 * d2
     w2 = o0 * d1 - o1 * d0
 
     def dotc(row, a0, a1, a2):
-        # constant rows [C, 1, M] . ray components [C, sub, 1] -> [C, sub, M]
-        return (a0 * tc[:, row:row + 1] + a1 * tc[:, row + 1:row + 2]
-                + a2 * tc[:, row + 2:row + 3])
+        # constant rows [N, M] . ray components [N, 1] -> [N, M]
+        return (a0 * tp[:, row] + a1 * tp[:, row + 1] + a2 * tp[:, row + 2])
 
     s = -dotc(0, d0, d1, d2)
-    t_num = dotc(0, o0, o1, o2) - tc[:, 3:4]
+    t_num = dotc(0, o0, o1, o2) - tp[:, 3]
     a_num = dotc(7, w0, w1, w2) + dotc(13, d0, d1, d2)
     b_num = -dotc(4, w0, w1, w2) + dotc(10, d0, d1, d2)
     s_ok = s.abs() > EPS_DET
@@ -272,22 +280,33 @@ def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit):
     beta = b_num * inv_s
     inside = (alpha >= 0) & (beta >= 0) & (alpha + beta <= 1)
     M = tc.shape[2]
-    slot_ok = (torch.arange(M, device=tc.device)[None, None, :]
-               < count[:, None, None])
-    ok = s_ok & (t_tri > EPS_HIT) & inside & touch[..., None] & slot_ok
+    slot_ok = torch.arange(M, device=tc.device)[None, :] < count[ci][:, None]
+    ok = s_ok & (t_tri > EPS_HIT) & inside & slot_ok
     t_tri = torch.where(ok, t_tri, torch.full_like(t_tri, INF))
+    tb_p, ib_p = tbc[ci, ri], ibc[ci, ri]
     if any_hit:
-        hit_any = (t_tri < tbc[..., None]).any(dim=-1)
-        return tbc, torch.where(hit_any, first[:, None].expand_as(ibc), ibc)
+        occl = t_tri < tb_p[:, None]
+        hit_any = occl.any(dim=-1)
+        if stats is not None:
+            # the search of a pair ends at its first occluding slot
+            need = torch.where(hit_any, occl.int().argmax(dim=-1) + 1,
+                               count[ci])
+            stats["tris"] = stats.get("tris", 0) + int(need.sum())
+        ibc[ci, ri] = torch.where(hit_any, first[ci], ib_p)
+        return tbc, ibc
+    if stats is not None:
+        stats["tris"] = stats.get("tris", 0) + int(count[ci].sum())
     j = torch.argmin(t_tri, dim=-1)                         # first minimum
-    t_min = torch.gather(t_tri, -1, j[..., None])[..., 0]
-    better = t_min < tbc
-    return (torch.where(better, t_min, tbc),
-            torch.where(better, first[:, None] + j.to(torch.int32), ibc))
+    t_min = torch.gather(t_tri, -1, j[:, None])[:, 0]
+    better = t_min < tb_p
+    tbc[ci, ri] = torch.where(better, t_min, tb_p)
+    ibc[ci, ri] = torch.where(better, first[ci] + j.to(torch.int32), ib_p)
+    return tbc, ibc
 
 
 def cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
-                       cl_first, cl_count, any_hit: bool, sub: int = SUB
+                       cl_first, cl_count, any_hit: bool, sub: int = SUB,
+                       stats: Optional[dict] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1 / K1' -> (t [S*sub] f32, idx [S*sub] i32).
 
@@ -295,6 +314,13 @@ def cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
     order[s, g] for every subgroup s that has one and has not stopped,
     with the same strict < update, the same first-of-cluster any-hit idx
     and the same exit rule after each step.
+
+    ``stats`` is a measurement hook for the kernel's bound: when given, it
+    gets the work these inputs need. ``slabs``: the slab tests of the rays
+    still searching in each visited subgroup; ``tris``: the real
+    triangles (``cl_count``, not the M padded slots) of each touched
+    (ray, cluster) pair; ``visits``: the (subgroup, step) visits;
+    ``clusters``: the set of visited cluster ids.
     """
     S, K = order.shape
     o = o4[:, :3].reshape(S, sub, 3)
@@ -310,12 +336,16 @@ def cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
         live = torch.nonzero((n_touched > g) & ~done)[:, 0]
         if live.numel() == 0:
             break
+        if stats is not None:
+            stats["visits"] = stats.get("visits", 0) + live.numel()
+            stats.setdefault("clusters", set()).update(
+                order[live, g].tolist())
         for c in range(0, live.numel(), _PLAIN_SCAN_CHUNK):
             sidx = live[c:c + _PLAIN_SCAN_CHUNK]
             k = order[sidx, g].long()
             tb[sidx], ib[sidx] = _solve_chunk(
                 cl_const[k], cl_count[k], cl_first[k], o[sidx], d[sidx],
-                iv[sidx], tb[sidx], ib[sidx], a[sidx], bb[k], any_hit)
+                iv[sidx], tb[sidx], ib[sidx], a[sidx], bb[k], any_hit, stats)
         if any_hit:
             more = (a[live] & (ib[live] < 0)).any(dim=1)
         else:
@@ -379,10 +409,14 @@ def pad_rays(o, d, t_max=None, active=None, sub: int = SUB):
 
 
 def phase1_keys(scene, o4, d4, t0, act, any_hit: bool, finite: bool,
-                sub: int = SUB, plain: bool = False) -> torch.Tensor:
+                sub: int = SUB, plain: bool = False,
+                phase1: Optional[str] = None) -> torch.Tensor:
     """Phase-1 keys [S, K]: the segment hull for finite any-hit queries,
-    the exact slab compaction (K2) otherwise."""
-    if any_hit and finite:
+    the exact slab compaction (K2) otherwise. ``phase1="exact"`` sends
+    finite any-hit queries through K2 too."""
+    if phase1 not in (None, "exact"):
+        raise ValueError(f"phase1 must be None or 'exact', not {phase1!r}")
+    if any_hit and finite and phase1 is None:
         S = o4.shape[0] // sub
         return phase1_anyhit_hull(
             o4[:, :3].reshape(S, sub, 3), d4[:, :3].reshape(S, sub, 3),
@@ -394,7 +428,8 @@ def phase1_keys(scene, o4, d4, t0, act, any_hit: bool, finite: bool,
 
 def intersect_clusters(scene, o, d, t_max=None, any_hit: bool = False,
                        active=None, cl_const=None, sub: int = SUB,
-                       plain: bool = False) -> TriHit:
+                       plain: bool = False,
+                       phase1: Optional[str] = None) -> TriHit:
     """Closest (or any) triangle hit per ray through the cluster scan.
 
     o, d [R, 3] or [R, 4]; ``t_max`` [R] bounds the hit distance (INF
@@ -402,7 +437,8 @@ def intersect_clusters(scene, o, d, t_max=None, any_hit: bool = False,
     :func:`pack_cluster_constants` (built here when None). Returns
     TriHit: idx -1 and t INF on a miss; any-hit queries report the first
     triangle of the occluding cluster. ``plain=True`` runs the plain
-    PyTorch versions of the kernels on any device.
+    PyTorch versions of the kernels on any device; ``phase1`` is
+    :func:`phase1_keys`'s.
     """
     R = o.shape[0]
     if scene.n_tris == 0:
@@ -412,7 +448,7 @@ def intersect_clusters(scene, o, d, t_max=None, any_hit: bool = False,
         cl_const = pack_cluster_constants(scene)
     o4, d4, t0, act = pad_rays(o, d, t_max, active, sub)
     key = phase1_keys(scene, o4, d4, t0, act, any_hit, t_max is not None,
-                      sub, plain)
+                      sub, plain, phase1)
     order, lb, n_touched = visit_lists(key)
     scan = cluster_scan_plain if plain else cluster_scan
     t, idx = scan(o4, d4, t0, act, cluster_boxes(scene), cl_const, order, lb,

@@ -1,15 +1,20 @@
 """Fused shading over the K3/K4 CUDA kernels, with plain versions.
 
-Counterpart of ``myraytracer_tpu/ops/pallas_shade.py`` for triangle-only,
-untextured scenes. Two kernels per Whitted segment:
+Counterpart of ``myraytracer_tpu/ops/pallas_shade.py``. Two kernels per
+Whitted segment, for every primitive kind and for textured meshes:
 
-  pre    (K3, :func:`shade_pre`)    resolve the hit from the triangle's
-         tri_pack row, read by hit id in the kernel: barycentrics,
-         flat or (unnormalized) Phong normal, the hit point re-projected
-         onto the triangle plane, the material id from column 26; then
-         the LIGHT-major shadow-ray batch for the any-hit scan.
+  pre    (K3, :func:`shade_pre`)    resolve each ray's hit by its kind:
+         a triangle from its tri_pack row (barycentrics, flat or
+         unnormalized Phong normal, the point re-projected onto the
+         triangle plane, the material id from column 26, the
+         nearest-texel atlas index of a textured triangle); a sphere,
+         plane or cylinder from its ana16 row (the point snapped onto
+         the surface, the outward normal, a cylinder's flipped toward
+         the viewer). Then the LIGHT-major shadow-ray batch for the
+         any-hit scan.
   phong  (K4, :func:`shade_phong`)  ambient + per-light diffuse/specular
-         under the shadow mask, the Whitted blend, the mirror bounce.
+         under the shadow mask, with a textured ray's texel in place of
+         the diffuse colour, the Whitted blend, the mirror bounce.
 
 Each wrapper runs its ``*_plain`` version for CPU tensors and launches
 its kernel for CUDA tensors.
@@ -21,11 +26,15 @@ import torch
 
 from myraytracer_tpu_torch.kernels import _build
 from myraytracer_tpu_torch.ops.intersect import EPS_DET
-from myraytracer_tpu_torch.ops.shade import EPS_OFFSET, KIND_TRI
+from myraytracer_tpu_torch.ops.shade import (EPS_OFFSET, KIND_CYL, KIND_PLANE,
+                                             KIND_SPHERE, KIND_TRI)
 from myraytracer_tpu_torch.utils.vecmath import EPS_NORMALIZE
 
 #: mat16 columns: kd kd kd ka ka ka ks ks ks shin mirror shadowable
 _M_KD, _M_KA, _M_KS, _M_SHIN, _M_MIRROR, _M_SHADOW = 0, 3, 6, 9, 10, 11
+
+#: the atlas index is computed on float32 integers: exact below 2^24
+MAX_ATLAS = 1 << 24
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -52,8 +61,17 @@ def _mat_cols(mat16, mid, cols):
     return [torch.where(ok, rows[:, c], zero) for c in cols]
 
 
-def shade_pre_plain(o, d, t, kind, live, tri_idx, tri_pack, mat16, light_pos):
+def _atlas_hi(atlas_size: int) -> int:
+    if atlas_size >= MAX_ATLAS:
+        raise ValueError(f"texture atlas of {atlas_size} texels: the atlas "
+                         f"index is exact only below {MAX_ATLAS}")
+    return max(int(atlas_size) - 1, 0)
+
+
+def shade_pre_plain(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16,
+                    mat16, light_pos, atlas_size: int = 1):
     """Plain version of K3; arguments and results as :func:`shade_pre`."""
+    atlas_hi = _atlas_hi(atlas_size)
     ox, oy, oz = o.unbind(1)
     dx, dy, dz = d.unbind(1)
     valid = kind > 0
@@ -99,6 +117,57 @@ def shade_pre_plain(o, d, t, kind, live, tri_idx, tri_pack, mat16, light_pos):
     nmy = torch.where(is_t, tny, zero)
     nmz = torch.where(is_t, tnz, zero)
     midf = torch.where(is_t, c[26], zero)
+
+    # nearest-texel atlas index: clamp UV, flip v, round half to even,
+    # all on float32 integers
+    u = alpha * c[9] + beta * c[10] + gamma * c[11]
+    v = alpha * c[12] + beta * c[13] + gamma * c[14]
+    tw = torch.clamp(c[27], min=1.0)
+    th = torch.clamp(c[28], min=1.0)
+    toff = torch.clamp(c[29], min=0.0)
+    fpx = torch.round(torch.clamp(u, 0.0, 1.0) * (tw - 1.0))
+    fpy = torch.round((1.0 - torch.clamp(v, 0.0, 1.0)) * (th - 1.0))
+    flat = torch.clamp(toff + fpy * tw + fpx, 0.0, float(atlas_hi))
+    texid = torch.where(is_t & (c[27] > 0.5), flat.to(torch.int32),
+                        torch.full_like(kind, -1))
+
+    # analytic kinds from their ana16 rows
+    is_s, is_p, is_c = kind == KIND_SPHERE, kind == KIND_PLANE, kind == KIND_CYL
+    a = ana16[aidx.long()].unbind(1)
+    cx, cy, cz, bx, by, bz, rr = a[0:7]
+    relx, rely, relz = gx - cx, gy - cy, gz - cz
+    # sphere: n = normalize(p - c), snap p = c + r n
+    inv_r = _safe_rsqrt(_dot3(relx, rely, relz, relx, rely, relz))
+    nsx, nsy, nsz = relx * inv_r, rely * inv_r, relz * inv_r
+    psx, psy, psz = cx + rr * nsx, cy + rr * nsy, cz + rr * nsz
+    # plane: normal = aux, snap = projection onto the plane
+    offp = _dot3(bx, by, bz, relx, rely, relz)
+    ppx, ppy, ppz = gx - offp * bx, gy - offp * by, gz - offp * bz
+    # cylinder: snap with the unflipped normal, then flip it toward the
+    # viewer for rays inside the tube
+    axial = _dot3(relx, rely, relz, bx, by, bz)
+    fcx, fcy, fcz = relx - axial * bx, rely - axial * by, relz - axial * bz
+    inv_f = _safe_rsqrt(_dot3(fcx, fcy, fcz, fcx, fcy, fcz))
+    n0x, n0y, n0z = fcx * inv_f, fcy * inv_f, fcz * inv_f
+    pcx = (cx + axial * bx) + rr * n0x
+    pcy = (cy + axial * by) + rr * n0y
+    pcz = (cz + axial * bz) + rr * n0z
+    flip = _dot3(n0x, n0y, n0z, dx, dy, dz) > 0
+    ncx = torch.where(flip, -n0x, n0x)
+    ncy = torch.where(flip, -n0y, n0y)
+    ncz = torch.where(flip, -n0z, n0z)
+
+    def pick(s_, p_, c_, other):
+        return torch.where(is_s, s_, torch.where(is_p, p_,
+                                                 torch.where(is_c, c_, other)))
+
+    px = pick(psx, ppx, pcx, px)
+    py = pick(psy, ppy, pcy, py)
+    pz = pick(psz, ppz, pcz, pz)
+    nmx = pick(nsx, bx, ncx, nmx)
+    nmy = pick(nsy, by, ncy, nmy)
+    nmz = pick(nsz, bz, ncz, nmz)
+    midf = torch.where(is_s | is_p | is_c, a[8], midf)
     mid = torch.where(valid, midf, zero).to(torch.int32)
 
     (shadowable,) = _mat_cols(mat16, mid, (_M_SHADOW,))
@@ -119,54 +188,63 @@ def shade_pre_plain(o, d, t, kind, live, tri_idx, tri_pack, mat16, light_pos):
     normal = torch.stack([nmx, nmy, nmz], dim=1)
     if not so:
         empty4 = o.new_zeros((0, 4))
-        return (point, normal, mid, empty4, empty4, o.new_zeros((0,)),
+        return (point, normal, mid, texid, empty4, empty4, o.new_zeros((0,)),
                 torch.zeros(0, dtype=torch.int32, device=o.device))
     # LIGHT-major [L*R, .]
-    return (point, normal, mid, torch.cat(so), torch.cat(sd), torch.cat(st),
-            torch.cat(sact))
+    return (point, normal, mid, texid, torch.cat(so), torch.cat(sd),
+            torch.cat(st), torch.cat(sact))
 
 
-def shade_pre(o, d, t, kind, live, tri_idx, tri_pack, mat16, light_pos):
+def shade_pre(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16, mat16,
+              light_pos, atlas_size: int = 1):
     """Resolve + shadow setup for a flat ray batch (K3 on CUDA tensors).
 
     Args: o, d [R, 3] f32; t [R] f32 closest-hit distance (INF on miss);
     kind [R] i32 hit kind (KIND_MISS for dead rays); live [R] i32;
-    tri_idx [R] i32 the tri_pack row of each ray, in [0, T) (0 for
-    non-triangle hits; the kernel reads it unchecked); tri_pack [T, 48]
-    f32; mat16 [Mt, 16] f32; light_pos [L, 3] f32.
-    Returns (point [R, 3], normal [R, 3], mid [R] i32, so [L*R, 4],
-    sd [L*R, 4], st [L*R], sact [L*R] i32): the shadow batch in LIGHT-major
-    order, 4-wide for the any-hit cluster scan.
+    tri_idx [R] i32 the tri_pack row of a triangle hit, aidx [R] i32 the
+    ana16 row of an analytic hit (each in range; the kernel reads them
+    unchecked, and only for rays of their kind); tri_pack [T, 32 or 48]
+    f32; ana16 [A, 16] f32; mat16 [Mt, 16] f32; light_pos [L, 3] f32;
+    atlas_size: rows of the texture atlas (below 2^24, else ValueError).
+    Returns (point [R, 3], normal [R, 3], mid [R] i32, texid [R] i32 the
+    atlas row of a textured triangle hit and -1 elsewhere, so [L*R, 4],
+    sd [L*R, 4], st [L*R], sact [L*R] i32): the shadow batch in
+    LIGHT-major order, 4-wide for the any-hit cluster scan.
     """
     if o.device.type == "cpu":
-        return shade_pre_plain(o, d, t, kind, live, tri_idx, tri_pack, mat16,
-                               light_pos)
+        return shade_pre_plain(o, d, t, kind, live, tri_idx, aidx, tri_pack,
+                               ana16, mat16, light_pos, atlas_size)
+    atlas_hi = _atlas_hi(atlas_size)
     dev = o.device
-    _build.check_inputs("shade_pre", dev, o_f=o, d_f=d, t_f=t, kind_i=kind,
-                        live_i=live, tri_idx_i=tri_idx, tri_pack_f=tri_pack,
-                        mat16_f=mat16, light_pos_f=light_pos)
+    _build.check_inputs("shade_pre", dev, widths=dict(ana16_f=16, mat16_f=16),
+                        o_f=o, d_f=d, t_f=t, kind_i=kind,
+                        live_i=live, tri_idx_i=tri_idx, aidx_i=aidx,
+                        tri_pack_f=tri_pack, ana16_f=ana16, mat16_f=mat16,
+                        light_pos_f=light_pos)
     R, L = o.shape[0], light_pos.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     point = torch.empty((R, 3), **f32)
     normal = torch.empty((R, 3), **f32)
     mid = torch.empty(R, **i32)
+    texid = torch.empty(R, **i32)
     so = torch.empty((L * R, 4), **f32)
     sd = torch.empty((L * R, 4), **f32)
     st = torch.empty(L * R, **f32)
     sact = torch.empty(L * R, **i32)
     _build.launch("mrt_shade_pre", "shade_pre", dev,
                   o.data_ptr(), d.data_ptr(), t.data_ptr(), kind.data_ptr(),
-                  live.data_ptr(), tri_idx.data_ptr(), tri_pack.data_ptr(),
-                  tri_pack.shape[1], light_pos.data_ptr(), mat16.data_ptr(),
-                  mat16.shape[0], L, R, point.data_ptr(), normal.data_ptr(),
-                  mid.data_ptr(), so.data_ptr(), sd.data_ptr(), st.data_ptr(),
-                  sact.data_ptr())
-    return point, normal, mid, so, sd, st, sact
+                  live.data_ptr(), tri_idx.data_ptr(), aidx.data_ptr(),
+                  tri_pack.data_ptr(), tri_pack.shape[1], ana16.data_ptr(),
+                  light_pos.data_ptr(), mat16.data_ptr(), mat16.shape[0],
+                  atlas_hi, L, R, point.data_ptr(), normal.data_ptr(),
+                  mid.data_ptr(), texid.data_ptr(), so.data_ptr(),
+                  sd.data_ptr(), st.data_ptr(), sact.data_ptr())
+    return point, normal, mid, texid, so, sd, st, sact
 
 
-def shade_phong_plain(o, d, weight, valid, live, mid, point, normal, shadow,
-                      mat16, light_pos, light_color, env):
+def shade_phong_plain(o, d, weight, valid, live, mid, texid, point, normal,
+                      shadow, mat16, texels, light_pos, light_color, env):
     """Plain version of K4; arguments and results as :func:`shade_phong`."""
     dx, dy, dz = d.unbind(1)
     is_valid = valid > 0
@@ -176,6 +254,12 @@ def shade_phong_plain(o, d, weight, valid, live, mid, point, normal, shadow,
     (kdx, kdy, kdz, kax, kay, kaz, ksx, ksy, ksz, shin, mir) = _mat_cols(
         mat16, mid, (_M_KD, _M_KD + 1, _M_KD + 2, _M_KA, _M_KA + 1, _M_KA + 2,
                      _M_KS, _M_KS + 1, _M_KS + 2, _M_SHIN, _M_MIRROR))
+    # a textured hit's texel replaces the diffuse colour
+    tm = texid >= 0
+    tex = texels[torch.clamp(texid, min=0).long()]
+    kdx = torch.where(tm, tex[:, 0], kdx)
+    kdy = torch.where(tm, tex[:, 1], kdy)
+    kdz = torch.where(tm, tex[:, 2], kdz)
     zero = torch.zeros_like(weight)
     mirror = torch.where(is_valid, mir, zero)
 
@@ -219,26 +303,30 @@ def shade_phong_plain(o, d, weight, valid, live, mid, point, normal, shadow,
     return add, o2, d2, w2
 
 
-def shade_phong(o, d, weight, valid, live, mid, point, normal, shadow, mat16,
-                light_pos, light_color, env):
+def shade_phong(o, d, weight, valid, live, mid, texid, point, normal, shadow,
+                mat16, texels, light_pos, light_color, env):
     """Lighting + Whitted blend + bounce (K4 on CUDA tensors).
 
     Args: o, d, point, normal [R, 3] f32; weight [R] f32; valid, live,
-    mid [R] i32; shadow [L, R] i32 (1 = occluded, LIGHT-major);
-    mat16 [Mt, 16] f32; light_pos, light_color [L, 3] f32;
+    mid [R] i32; texid [R] i32 the atlas row of a textured hit, -1
+    elsewhere (the kernel reads texels[texid] unchecked where >= 0);
+    shadow [L, R] i32 (1 = occluded, LIGHT-major); mat16 [Mt, 16] f32;
+    texels [X, 3] f32; light_pos, light_color [L, 3] f32;
     env [6] f32 (ambience, background).
     Returns (add [R, 3], o2 [R, 3], d2 [R, 3], w2 [R]).
     """
     if o.device.type == "cpu":
-        return shade_phong_plain(o, d, weight, valid, live, mid, point,
-                                 normal, shadow, mat16, light_pos,
+        return shade_phong_plain(o, d, weight, valid, live, mid, texid, point,
+                                 normal, shadow, mat16, texels, light_pos,
                                  light_color, env)
     dev = o.device
-    _build.check_inputs("shade_phong", dev, o_f=o, d_f=d, weight_f=weight,
-                        valid_i=valid, live_i=live, mid_i=mid, point_f=point,
-                        normal_f=normal, shadow_i=shadow, mat16_f=mat16,
-                        light_pos_f=light_pos, light_color_f=light_color,
-                        env_f=env)
+    _build.check_inputs("shade_phong", dev,
+                        widths=dict(mat16_f=16, texels_f=3),
+                        o_f=o, d_f=d, weight_f=weight,
+                        valid_i=valid, live_i=live, mid_i=mid, texid_i=texid,
+                        point_f=point, normal_f=normal, shadow_i=shadow,
+                        mat16_f=mat16, texels_f=texels, light_pos_f=light_pos,
+                        light_color_f=light_color, env_f=env)
     R, L = o.shape[0], light_pos.shape[0]
     add = torch.empty((R, 3), dtype=torch.float32, device=dev)
     o2 = torch.empty((R, 3), dtype=torch.float32, device=dev)
@@ -247,8 +335,9 @@ def shade_phong(o, d, weight, valid, live, mid, point, normal, shadow, mat16,
     _build.launch("mrt_shade_phong", "shade_phong", dev,
                   o.data_ptr(), d.data_ptr(), weight.data_ptr(),
                   valid.data_ptr(), live.data_ptr(), mid.data_ptr(),
-                  point.data_ptr(), normal.data_ptr(), shadow.data_ptr(),
-                  light_pos.data_ptr(), light_color.data_ptr(), env.data_ptr(),
-                  mat16.data_ptr(), mat16.shape[0], L, R, add.data_ptr(),
-                  o2.data_ptr(), d2.data_ptr(), w2.data_ptr())
+                  texid.data_ptr(), point.data_ptr(), normal.data_ptr(),
+                  shadow.data_ptr(), texels.data_ptr(), light_pos.data_ptr(),
+                  light_color.data_ptr(), env.data_ptr(), mat16.data_ptr(),
+                  mat16.shape[0], L, R, add.data_ptr(), o2.data_ptr(),
+                  d2.data_ptr(), w2.data_ptr())
     return add, o2, d2, w2

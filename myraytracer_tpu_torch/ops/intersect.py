@@ -1,8 +1,9 @@
-"""Ray-primitive constants and the slab test (torch).
+"""Ray-primitive intersection and the slab test (torch).
 
 Counterpart of ``myraytracer_tpu/ops/intersect.py``: the same epsilons,
-and misses encoded as the finite ``INF = 3e38`` so closest-hit stays a
-plain min and the kernels compare it like any other distance.
+the same expression forms (so t agrees with the reference to the bit on
+the CPU), and misses encoded as the finite ``INF = 3e38`` so closest-hit
+stays a plain min and the kernels compare it like any other distance.
 """
 
 from __future__ import annotations
@@ -22,6 +23,72 @@ EPS_DET = 1e-10
 
 #: "no hit" distance: finite on purpose (the kernels rely on INF < inf)
 INF = 3.0e38
+
+
+def dot_last(a, b):
+    """Dot product along the last axis."""
+    return torch.sum(a * b, dim=-1)
+
+
+def ray_sphere(o, d, center, radius):
+    """Closest ray-sphere hit distance; INF on miss.
+
+    o, d, center [..., 3] and radius [...], broadcastable; directions
+    need not be normalized.
+    """
+    oc = o - center
+    a = vm.dot(d, d)
+    b = 2.0 * vm.dot(oc, d)
+    c = vm.dot(oc, oc) - radius * radius
+    disc = b * b - 4.0 * a * c
+    sq = vm.sqrt(torch.clamp(disc, min=0.0))
+    inv2a = 0.5 / a
+    t0 = (-b - sq) * inv2a
+    t1 = (-b + sq) * inv2a
+    t = torch.where(t0 > EPS_HIT, t0, t1)
+    valid = (disc >= 0.0) & (t > EPS_HIT)
+    return torch.where(valid, t, torch.full_like(t, INF))
+
+
+def ray_plane(o, d, center, normal):
+    """Ray-plane hit distance; INF on miss or for a parallel ray."""
+    cos_theta = vm.dot(normal, d)
+    parallel = cos_theta.abs() < EPS_PARALLEL
+    denom = torch.where(parallel, torch.ones_like(cos_theta), cos_theta)
+    t = (vm.dot(normal, center) - vm.dot(normal, o)) / denom
+    valid = ~parallel & (t > EPS_HIT)
+    return torch.where(valid, t, torch.full_like(t, INF))
+
+
+def ray_cylinder(o, d, center, axis, radius, height):
+    """Closest hit with a finite open (uncapped) cylinder; INF on miss.
+
+    With a = d - (d.u)u and b = oc - (oc.u)u, solves |a t + b|^2 = r^2
+    and keeps the nearer root whose point lies within +-height/2 along
+    the axis u. A ray parallel to the axis (|a|^2 < 1e-12) misses.
+    """
+    oc = o - center
+    d_par = dot_last(d, axis)
+    oc_par = dot_last(oc, axis)
+    a_v = d - d_par[..., None] * axis
+    b_v = oc - oc_par[..., None] * axis
+    a = dot_last(a_v, a_v)
+    b = 2.0 * dot_last(a_v, b_v)
+    c = dot_last(b_v, b_v) - radius * radius
+    degenerate = a < 1e-12
+    a_safe = torch.where(degenerate, torch.ones_like(a), a)
+    disc = b * b - 4.0 * a_safe * c
+    sq = vm.sqrt(torch.clamp(disc, min=0.0))
+    inv2a = 0.5 / a_safe
+    t0 = (-b - sq) * inv2a
+    t1 = (-b + sq) * inv2a
+    half = height * 0.5
+    ok0 = (t0 > EPS_HIT) & ((oc_par + t0 * d_par).abs() <= half)
+    ok1 = (t1 > EPS_HIT) & ((oc_par + t1 * d_par).abs() <= half)
+    inf = torch.full_like(t0, INF)
+    t = torch.where(ok0, t0, torch.where(ok1, t1, inf))
+    valid = ~degenerate & (disc >= 0.0) & (ok0 | ok1)
+    return torch.where(valid, t, inf)
 
 
 def ray_aabb(o, inv_d, bbmin, bbmax):

@@ -1,11 +1,18 @@
 """Render and training entry points in screen-block order (torch).
 
-Counterpart of ``render`` and ``render_loss_grad(_image)`` in
-``myraytracer_tpu/ops/render.py``. Pixels are padded to whole BLOCK x
+Counterpart of ``render``, ``render_aa`` and ``render_loss_grad(_image)``
+in ``myraytracer_tpu/ops/render.py``. Pixels are padded to whole BLOCK x
 BLOCK screen blocks and the rays of one block are contiguous, so every
 compaction subgroup of the cluster scan is a compact screen footprint.
 The frame is traced in one batch by default; ``tile`` cuts it into
 batches of whole screen blocks to bound memory.
+
+:func:`render_aa` adds the adaptive supersampling pass: the pixels whose
+4-neighbourhood colour deviation exceeds AA_THRESHOLD, at most a budget
+of them (the largest deviations first), are traced again with an
+AA_SUBP x AA_SUBP stratified grid of subpixel rays and averaged. The
+result equals the unbounded rule whenever the budget covers every pixel
+above the threshold (:func:`aa_budget_covered`).
 
 The training step (:func:`render_loss_grad_image`) returns the SSE loss
 against a target image and its gradient with respect to every float
@@ -31,6 +38,10 @@ from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
 
 #: screen-block edge of the primary ray order
 BLOCK = 32
+
+#: adaptive supersampling: subpixel grid edge and deviation threshold
+AA_SUBP = 4
+AA_THRESHOLD = 0.02
 
 
 def _fit_tile(R: int, tile: int, quantum: int) -> int:
@@ -113,6 +124,107 @@ def render(scene, camera: Camera, tile: Optional[int] = None,
            .permute(0, 2, 1, 3, 4)
            .reshape(Hp, Wp, 3)[:H, :W])
     return torch.clamp(img, max=1.0)
+
+
+def _deviation(img: torch.Tensor) -> torch.Tensor:
+    """[H, W] sum of squared colour distances to the 4-neighbourhood; the
+    1-pixel border never supersamples (0 there)."""
+    c = img
+    dev = torch.zeros(img.shape[:2], dtype=img.dtype, device=img.device)
+    dev[:, :-1] += torch.sum((c[:, :-1] - c[:, 1:]) ** 2, dim=-1)
+    dev[:, 1:] += torch.sum((c[:, 1:] - c[:, :-1]) ** 2, dim=-1)
+    dev[:-1, :] += torch.sum((c[:-1] - c[1:]) ** 2, dim=-1)
+    dev[1:, :] += torch.sum((c[1:] - c[:-1]) ** 2, dim=-1)
+    dev[0, :] = 0.0
+    dev[-1, :] = 0.0
+    dev[:, 0] = 0.0
+    dev[:, -1] = 0.0
+    return dev
+
+
+def aa_budget_covered(img1: torch.Tensor, budget_frac: float,
+                      threshold: float = AA_THRESHOLD) -> bool:
+    """Does the budget of :func:`render_aa` cover every pixel of the
+    pass-1 image ``img1`` whose deviation exceeds ``threshold``?"""
+    H, W = img1.shape[:2]
+    K = min(max(1, int(H * W * budget_frac)), H * W)
+    return int((_deviation(img1) > threshold).sum()) <= K
+
+
+def _aa_rays(camera: Camera, img1, subp: int, threshold: float,
+             budget_frac: float):
+    """The AA pass's pixel selection and subpixel rays.
+
+    Returns (top_idx [K], sel [K], o, d [K * subp^2, 3]) with the K
+    largest deviations re-sorted into screen-block order; sel marks those
+    above the threshold. The rays of the other slots are guaranteed-miss
+    probes (origin 3e18, direction +x) whose colour is never used.
+    """
+    H, W = camera.height, camera.width
+    dev = _deviation(img1).reshape(-1)
+    K = min(max(1, int(H * W * budget_frac)), H * W)
+    top_dev, top_idx = torch.topk(dev, K)
+    sel = top_dev > threshold
+    # re-sort the selection into screen-block order (a unique key), so
+    # the subray batch is spatially coherent for the cluster scan
+    pxi, pyi = top_idx % W, top_idx // W
+    bkey = (pyi // BLOCK) * (-(-W // BLOCK)) + pxi // BLOCK
+    bkey = bkey * (BLOCK * BLOCK) + (pyi % BLOCK) * BLOCK + (pxi % BLOCK)
+    ordk = torch.argsort(bkey)
+    top_idx, sel = top_idx[ordk], sel[ordk]
+
+    px = (top_idx % W).to(torch.float32)
+    py = (top_idx // W).to(torch.float32)
+    # stratified subp x subp offsets at cell centres
+    steps = (torch.arange(subp, dtype=torch.float32, device=img1.device)
+             / subp) - 0.5 + 1.0 / (2.0 * subp)
+    ox, oy = torch.meshgrid(steps, steps, indexing="ij")
+    xs = (px[:, None] + ox.reshape(-1)[None, :]).reshape(-1)
+    ys = (py[:, None] + oy.reshape(-1)[None, :]).reshape(-1)
+    o, d = camera.primary_rays(xs, ys)
+    sel_ray = sel.repeat_interleave(subp * subp)[:, None]
+    o = torch.where(sel_ray, o, torch.full_like(o, 3e18))
+    d = torch.where(sel_ray, d, d.new_tensor([1.0, 0.0, 0.0]).expand_as(d))
+    return top_idx, sel, o.contiguous(), d.contiguous()
+
+
+def _aa_apply(camera: Camera, img1, top_idx, sel, colors, subp: int):
+    """Average each selected pixel's subpixel colours into the image."""
+    H, W = camera.height, camera.width
+    K = top_idx.shape[0]
+    avg = torch.clamp(colors.reshape(K, subp * subp, 3).mean(dim=1), max=1.0)
+    flat = img1.reshape(-1, 3).clone()
+    flat[top_idx] = torch.where(sel[:, None], avg, flat[top_idx])
+    return flat.reshape(H, W, 3)
+
+
+def _aa_refine(scene, camera: Camera, img1, tile: Optional[int] = None,
+               cfg: tr.TraceConfig = tr.TraceConfig(), subp: int = AA_SUBP,
+               threshold: float = AA_THRESHOLD, budget_frac: float = 0.10
+               ) -> torch.Tensor:
+    """The adaptive-supersampling pass over a finished pass-1 image."""
+    top_idx, sel, o, d = _aa_rays(camera, img1, subp, threshold, budget_frac)
+    # the subray batch is screen-scattered: its any-hit queries take the
+    # exact phase-1 (K2), where the segment hulls would be loose
+    colors = _trace_tiled(scene, o, d, cfg._replace(phase1="exact"),
+                          o.shape[0] if tile is None else tile)
+    return _aa_apply(camera, img1, top_idx, sel, colors, subp)
+
+
+def render_aa(scene, camera: Camera, tile: Optional[int] = None,
+              cfg: tr.TraceConfig = tr.TraceConfig(), subp: int = AA_SUBP,
+              threshold: float = AA_THRESHOLD, budget_frac: float = 0.10
+              ) -> torch.Tensor:
+    """Render + adaptive supersampling -> [H, W, 3] in [0, 1].
+
+    ``budget_frac`` bounds the supersampled pixels as a fraction of the
+    image; above-threshold pixels beyond the budget (smallest deviations
+    first) keep their pass-1 colour. ``tile`` (rays) bounds each pass's
+    trace batch; None traces each pass in one.
+    """
+    img1 = render(scene, camera, tile, cfg)
+    return _aa_refine(scene, camera, img1, tile, cfg, subp, threshold,
+                      budget_frac)
 
 
 def restore_mirror_chain(scene):

@@ -1,23 +1,29 @@
 """Hit kinds, the secondary-ray offset and the packed shading rows (torch).
 
-Counterpart of ``myraytracer_tpu/ops/shade.py`` for triangle-only
-scenes: the packed rows and the differentiable hit resolve.
-``pack_shade_geom`` builds the per-triangle row table that the pre
-kernel (ops/cuda_shade.py) reads by hit id, with the reference layout:
+Counterpart of ``myraytracer_tpu/ops/shade.py``: the packed rows and
+the differentiable hit resolve. ``pack_shade_geom`` builds the row
+tables that the pre kernel (ops/cuda_shade.py) reads by hit id, with the
+reference layout:
 
-  tri_pack [T, 48] f32
+  tri_pack [T, 48] f32 (triangle-only scenes) or [T, 32] (scenes that
+  also hold spheres, planes or cylinders; [1, 32] zeros without
+  triangles)
     [:, 0:16]   p0 p1 p2 (9) | u0 u1 u2 v0 v1 v2 (6) | pad
     [:, 16:32]  n0 n1 n2 (9) | phong flag (1) | mat id (1) |
                 tex W, H, offset as floats (3, cols 27-29) | pad
     [:, 32:48]  the triangle's mat16 row
+  ana16 [A, 16] f32: spheres, then planes, then cylinders ([1, 16]
+  zeros without any)
+    center (0-2) | aux (3-5: plane normal, cylinder axis) | radius (6) |
+    height (7) | mat id (8) | pad
   mat16 [Mt, 16] f32
     diffuse3 ambient3 specular3 shininess mirror shadowable | pad
 
-Only triangle-only scenes are packed (the 48-column layout); scenes with
-spheres, planes or cylinders are not ported yet. The pack is an ordinary
-differentiable function of the scene's tensors (no detach): built once
-per training pass, its gather backward carries the row cotangents back
-to ``vertex_pos``, ``vertex_normal`` and the material table once.
+The pack is an ordinary differentiable function of the scene's tensors
+(no detach): built once per training pass, its gather backward carries
+the row cotangents back to ``vertex_pos``, ``vertex_normal`` and the
+material table once. :func:`resolve_hit` (the training replay) covers
+the triangle branch only.
 """
 
 from __future__ import annotations
@@ -58,8 +64,14 @@ class Hit(NamedTuple):
 class ShadeGeom(NamedTuple):
     """Packed per-triangle and per-material rows (layout in module doc)."""
 
-    tri_pack: torch.Tensor  # [T, 48]
+    tri_pack: torch.Tensor  # [T, 48] or [T, 32]
     mat16: torch.Tensor     # [Mt, 16]
+    ana16: torch.Tensor     # [A, 16]
+
+
+def has_analytic(scene) -> bool:
+    """Does the scene hold spheres, planes or cylinders?"""
+    return bool(scene.n_spheres or scene.n_planes or scene.n_cylinders)
 
 
 def pack_mat16(scene) -> torch.Tensor:
@@ -73,14 +85,40 @@ def pack_mat16(scene) -> torch.Tensor:
     ], dim=1)
 
 
+def _pack_ana16(scene) -> torch.Tensor:
+    """[A, 16] analytic rows: spheres, then planes, then cylinders."""
+    f32 = dict(dtype=torch.float32, device=scene.device)
+    rows = []
+    if scene.n_spheres:
+        S = scene.n_spheres
+        rows.append(torch.cat([
+            scene.sphere_center, torch.zeros((S, 3), **f32),
+            scene.sphere_radius[:, None], torch.zeros((S, 1), **f32),
+            scene.sphere_mat.float()[:, None], torch.zeros((S, 7), **f32)],
+            dim=1))
+    if scene.n_planes:
+        P = scene.n_planes
+        rows.append(torch.cat([
+            scene.plane_center, scene.plane_normal, torch.zeros((P, 2), **f32),
+            scene.plane_mat.float()[:, None], torch.zeros((P, 7), **f32)],
+            dim=1))
+    if scene.n_cylinders:
+        C = scene.n_cylinders
+        rows.append(torch.cat([
+            scene.cyl_center, scene.cyl_axis, scene.cyl_radius[:, None],
+            scene.cyl_height[:, None], scene.cyl_mat.float()[:, None],
+            torch.zeros((C, 7), **f32)], dim=1))
+    return (torch.cat(rows).contiguous() if rows
+            else torch.zeros((1, 16), **f32))
+
+
 def pack_shade_geom(scene) -> ShadeGeom:
-    """Build the packed rows of a triangle-only scene."""
-    if not scene.n_tris or (scene.n_spheres or scene.n_planes
-                            or scene.n_cylinders):
-        raise NotImplementedError(
-            "the port packs triangle-only scenes; spheres, planes and "
-            "cylinders are not ported yet")
+    """Build the packed rows of a scene (layout in the module doc)."""
     mat16 = pack_mat16(scene)
+    ana16 = _pack_ana16(scene)
+    if not scene.n_tris:
+        return ShadeGeom(tri_pack=mat16.new_zeros((1, 32)),
+                         mat16=mat16.contiguous(), ana16=ana16)
     tv = scene.tri_vidx.long()
     T = tv.shape[0]
     vp = scene.vertex_pos
@@ -99,10 +137,12 @@ def pack_shade_geom(scene) -> ShadeGeom:
     # col 26: the material id as a float, exact for ids < 2^24
     mat_f = scene.tri_mat.float()[:, None]
     tex_f = scene.tri_tex.float()
-    tri_pack = torch.cat([pos9, uv6, vp.new_zeros((T, 1)),          # 0:16
-                          nrm9, flag, mat_f, tex_f, vp.new_zeros((T, 2)),
-                          mat16[scene.tri_mat.long()]], dim=1)     # 32:48
-    return ShadeGeom(tri_pack=tri_pack.contiguous(), mat16=mat16.contiguous())
+    parts = [pos9, uv6, vp.new_zeros((T, 1)),                       # 0:16
+             nrm9, flag, mat_f, tex_f, vp.new_zeros((T, 2))]        # 16:32
+    if not has_analytic(scene):
+        parts.append(mat16[scene.tri_mat.long()])                   # 32:48
+    return ShadeGeom(tri_pack=torch.cat(parts, dim=1).contiguous(),
+                     mat16=mat16.contiguous(), ana16=ana16)
 
 
 def resolve_hit(scene, o, d, kind, idx, geom: ShadeGeom) -> Hit:

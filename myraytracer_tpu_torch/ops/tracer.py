@@ -1,12 +1,16 @@
 """Wavefront Whitted integrator over the fused kernel pipeline (torch).
 
-Counterpart of the fused branch of ``myraytracer_tpu/ops/tracer.py`` for
-triangle-only, untextured scenes. Every Whitted segment runs once over
-the whole flat ray batch:
+Counterpart of the fused branch of ``myraytracer_tpu/ops/tracer.py``.
+Every Whitted segment runs once over the whole flat ray batch:
 
-  closest-hit cluster scan (K2 phase-1 + K1)  ->  pre kernel K3 (hit
-  resolve + light-major shadow batch)  ->  any-hit cluster scan (hull
-  phase-1 + K1')  ->  phong kernel K4 (lighting, blend, bounce).
+  closest hit  the dense analytic tests (spheres, then planes, then
+               cylinders; torch ops), then triangles through the cluster
+               scan (K2 phase-1 + K1), merged in that order with strict <
+  pre kernel   K3: per-kind hit resolve, atlas index, light-major
+               shadow batch
+  any hit      the any-hit cluster scan (hull or K2 phase-1 + K1') OR-ed
+               with the dense analytic occlusion
+  phong kernel K4: lighting with the texel override, blend, bounce.
 
 :func:`trace` runs that chain. The training step splits it in two:
 :func:`trace_topology` runs the same chain without gradients and records
@@ -14,11 +18,11 @@ per segment which triangle each ray hit and the shadow mask;
 :func:`trace_shade` replays the differentiable shading on that fixed
 topology, with no traversal, either through the fused K5/K6 segment
 (ops/shade_grad.py, the default) or as an autograd replay of
-``shade.resolve_hit`` + :func:`lighting_from_mask`.
+``shade.resolve_hit`` + :func:`lighting_from_mask`. The training split
+covers untextured triangle-only scenes; the others raise
+NotImplementedError there (:func:`check_supported`).
 
-A segment in which no ray is alive any more is skipped. Scenes with
-spheres, planes, cylinders or textures raise NotImplementedError: their
-branches of K3/K4 are not ported yet.
+A segment in which no ray is alive any more is skipped.
 """
 
 from __future__ import annotations
@@ -29,15 +33,20 @@ import torch
 
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
+from myraytracer_tpu_torch.ops import intersect as isx
 from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.utils import vecmath as vm
 
+#: rays x primitives per step of the dense analytic tests: bounds their
+#: [rays, P, 3] temporaries to 192 MB each
+ANA_BUDGET = 1 << 24
+
 
 class TraceConfig(NamedTuple):
     """Options of the integrator: the reference's TraceConfig reduced to
-    what the fused triangle path reads."""
+    what the fused path reads."""
 
     #: run the plain PyTorch versions of the kernels, on any device
     #: (compares the kernels with them on the card)
@@ -48,6 +57,11 @@ class TraceConfig(NamedTuple):
     #: segment opt-in because a Pallas boundary re-lays out ~30 per-ray
     #: columns on the TPU; on the GPU a thread reads its row by id.
     fused_shade_grad: bool = True
+    #: phase-1 of the cluster scans: None keeps the segment hull for
+    #: finite any-hit queries; "exact" sends them through K2 too. The AA
+    #: refine sets "exact": its screen-scattered subray bundles make the
+    #: hulls loose.
+    phase1: Optional[str] = None
 
 
 class Bounce(NamedTuple):
@@ -62,29 +76,104 @@ class Bounce(NamedTuple):
 class TracePack(NamedTuple):
     """Scene tables the segments read, packed once per render."""
 
-    cl_const: torch.Tensor  # [K, 16, M] cluster solve constants
-    geom: shade.ShadeGeom   # tri_pack [T, 48], mat16 [Mt, 16]
-    env: torch.Tensor       # [6] ambience, background
+    cl_const: Optional[torch.Tensor]  # [K, 16, M]; None without triangles
+    geom: shade.ShadeGeom             # tri_pack, mat16, ana16
+    env: torch.Tensor                 # [6] ambience, background
 
 
 def check_supported(scene) -> None:
-    """Raise NotImplementedError for scenes the port cannot trace yet."""
-    if scene.n_spheres or scene.n_planes or scene.n_cylinders:
+    """Raise NotImplementedError for scenes the training split
+    (:func:`trace_topology`, :func:`trace_shade`) cannot take yet: its
+    replay resolves untextured triangles only."""
+    if shade.has_analytic(scene):
         raise NotImplementedError(
-            "spheres, planes and cylinders are not ported yet")
+            "training on spheres, planes and cylinders is not ported yet")
     if scene.has_textures:
-        raise NotImplementedError("textured meshes are not ported yet")
+        raise NotImplementedError(
+            "training on textured meshes is not ported yet")
     if not scene.n_tris:
-        raise NotImplementedError("the port traces triangle meshes only")
+        raise NotImplementedError("training needs a triangle mesh")
 
 
 def pack_trace(scene) -> TracePack:
     """Pack the tables :func:`segment_step` reads (once per render)."""
-    check_supported(scene)
     return TracePack(
-        cl_const=cc.pack_cluster_constants(scene),
+        cl_const=cc.pack_cluster_constants(scene) if scene.n_tris else None,
         geom=shade.pack_shade_geom(scene),
         env=torch.cat([scene.ambience, scene.background]).contiguous())
+
+
+def _analytic_kinds(scene):
+    """(kind, count, t(o, d) -> [N, count]) per analytic kind present, in
+    merge order: spheres, planes, cylinders."""
+    sc = scene
+    out = []
+    if sc.n_spheres:
+        out.append((shade.KIND_SPHERE, sc.n_spheres, lambda o, d: (
+            isx.ray_sphere(o[:, None], d[:, None], sc.sphere_center[None],
+                           sc.sphere_radius[None]))))
+    if sc.n_planes:
+        out.append((shade.KIND_PLANE, sc.n_planes, lambda o, d: (
+            isx.ray_plane(o[:, None], d[:, None], sc.plane_center[None],
+                          sc.plane_normal[None]))))
+    if sc.n_cylinders:
+        out.append((shade.KIND_CYL, sc.n_cylinders, lambda o, d: (
+            isx.ray_cylinder(o[:, None], d[:, None], sc.cyl_center[None],
+                             sc.cyl_axis[None], sc.cyl_radius[None],
+                             sc.cyl_height[None]))))
+    return out
+
+
+def _ray_steps(scene, n: int):
+    """Ray slices of the dense analytic tests (ANA_BUDGET bounds each)."""
+    prims = scene.n_spheres + scene.n_planes + scene.n_cylinders
+    step = max(1, ANA_BUDGET // max(prims, 1))
+    return [slice(i, i + step) for i in range(0, n, step)]
+
+
+def _closest_analytic(scene, o, d):
+    """Closest sphere/plane/cylinder hit of each ray.
+
+    Returns (kind [R] i32, idx [R] i32 per-kind index, aidx [R] i32 row
+    of ShadeGeom.ana16, t [R]); KIND_MISS, 0, 0 and INF where no analytic
+    primitive is hit. The kinds merge in the order sphere, plane,
+    cylinder with strict <, and each kind's argmin takes the first
+    minimum, so exact ties resolve as in the reference.
+    """
+    R = o.shape[0]
+    kind = torch.full((R,), shade.KIND_MISS, dtype=torch.int32, device=o.device)
+    idx = torch.zeros(R, dtype=torch.int32, device=o.device)
+    aidx = torch.zeros(R, dtype=torch.int32, device=o.device)
+    best_t = torch.full((R,), INF, device=o.device)
+    kinds = _analytic_kinds(scene)
+    if not kinds:
+        return kind, idx, aidx, best_t
+    for sl in _ray_steps(scene, R):
+        a_off = 0
+        for k, n, fn in kinds:
+            t_all = fn(o[sl], d[sl])                                # [N, n]
+            t_k, i_k = torch.min(t_all, dim=1)
+            i_k = i_k.to(torch.int32)
+            better = t_k < best_t[sl]
+            best_t[sl] = torch.where(better, t_k, best_t[sl])
+            kind[sl] = torch.where(better, k, kind[sl])
+            idx[sl] = torch.where(better, i_k, idx[sl])
+            aidx[sl] = torch.where(better, i_k + a_off, aidx[sl])
+            a_off += n
+    return kind, idx, aidx, best_t
+
+
+def _analytic_occlusion(scene, o, d, dist):
+    """Does any analytic primitive occlude o -> o + dist d? [N] bool.
+
+    Each kind is one dense [N, P] test: shadowed iff any t < dist.
+    """
+    shadowed = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    kinds = _analytic_kinds(scene)
+    for sl in (_ray_steps(scene, o.shape[0]) if kinds else ()):
+        for _, _, fn in kinds:
+            shadowed[sl] |= (fn(o[sl], d[sl]) < dist[sl, None]).any(dim=1)
+    return shadowed
 
 
 class TraceTopo(NamedTuple):
@@ -101,6 +190,48 @@ class TraceTopo(NamedTuple):
     shadow: torch.Tensor  # bool occluded, per light
 
 
+def closest_hit(scene, pack: TracePack, o, d, live,
+                cfg: TraceConfig = TraceConfig()):
+    """Closest hit of each ray over every primitive kind.
+
+    Analytic kinds first, triangles (the cluster scan) last, merged with
+    strict <. Returns (kind [R] i32, KIND_MISS for dead rays; pidx [R]
+    i32 the per-kind index; aidx [R] i32 the ana16 row of the closest
+    analytic primitive; t [R], INF on a miss).
+    """
+    kind, pidx, aidx, t = _closest_analytic(scene, o, d)
+    if scene.n_tris:
+        tri = cc.intersect_clusters(scene, o, d, active=live,
+                                    cl_const=pack.cl_const, plain=cfg.plain,
+                                    phase1=cfg.phase1)
+        better = tri.t < t
+        kind = torch.where(better, shade.KIND_TRI, kind)
+        pidx = torch.where(better, torch.clamp(tri.idx, min=0), pidx)
+        t = torch.where(better, tri.t, t)
+    kind = torch.where(live, kind, shade.KIND_MISS).to(torch.int32)
+    return kind, pidx, aidx, t
+
+
+def shadow_mask(scene, pack: TracePack, so, sd, st, sact,
+                cfg: TraceConfig = TraceConfig()) -> torch.Tensor:
+    """Occlusion of K3's light-major shadow batch -> [L*R] i32.
+
+    The any-hit cluster scan OR-ed with the dense analytic occlusion,
+    both for the active shadow rays only.
+    """
+    cast = sact > 0
+    shadow = torch.zeros_like(cast)
+    if scene.n_tris and cast.numel():
+        occ = cc.intersect_clusters(scene, so, sd, t_max=st, any_hit=True,
+                                    active=cast, cl_const=pack.cl_const,
+                                    plain=cfg.plain, phase1=cfg.phase1)
+        shadow = occ.idx >= 0
+    if shade.has_analytic(scene):
+        shadow = shadow | (cast & _analytic_occlusion(
+            scene, so[:, :3], sd[:, :3], st))
+    return shadow.to(torch.int32)
+
+
 def segment_step(scene, pack: TracePack, carry: Bounce,
                  cfg: TraceConfig = TraceConfig()):
     """One Whitted segment -> (next bounce with its color added, the
@@ -111,35 +242,28 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
     o = carry.o.contiguous()
     d = carry.d.contiguous()
 
-    tri = cc.intersect_clusters(scene, o, d, active=live,
-                                cl_const=pack.cl_const, plain=cfg.plain)
-    hit = tri.t < INF
-    kind = torch.where(hit & live, shade.KIND_TRI, shade.KIND_MISS).to(torch.int32)
+    kind, pidx, aidx, t = closest_hit(scene, pack, o, d, live, cfg)
     valid = kind != shade.KIND_MISS
-    t = torch.where(hit, tri.t, torch.full_like(tri.t, INF))
-    tri_idx = torch.where(valid, torch.clamp(tri.idx, min=0),
-                          torch.zeros_like(tri.idx)).contiguous()
+    zero_i = torch.zeros_like(pidx)
+    idx = torch.where(valid, pidx, zero_i)
+    tri_idx = torch.where(kind == shade.KIND_TRI, pidx, zero_i).contiguous()
     live_i = live.to(torch.int32)
 
     pre = cs.shade_pre_plain if cfg.plain else cs.shade_pre
-    point, normal, mid, so, sd, st, sact = pre(
-        o, d, t.contiguous(), kind, live_i, tri_idx, pack.geom.tri_pack,
-        pack.geom.mat16, scene.light_pos)
+    geom = pack.geom
+    point, normal, mid, texid, so, sd, st, sact = pre(
+        o, d, t.contiguous(), kind, live_i, tri_idx,
+        torch.where(valid, aidx, zero_i).contiguous(), geom.tri_pack,
+        geom.ana16, geom.mat16, scene.light_pos, scene.texels.shape[0])
 
-    if L:
-        occ = cc.intersect_clusters(scene, so, sd, t_max=st, any_hit=True,
-                                    active=sact > 0, cl_const=pack.cl_const,
-                                    plain=cfg.plain)
-        shadow = (occ.idx >= 0).to(torch.int32).reshape(L, R)
-    else:
-        shadow = torch.zeros((0, R), dtype=torch.int32, device=o.device)
+    shadow = shadow_mask(scene, pack, so, sd, st, sact, cfg).reshape(L, R)
 
     phong = cs.shade_phong_plain if cfg.plain else cs.shade_phong
     add, o2, d2, w2 = phong(
         o, d, carry.weight.contiguous(), valid.to(torch.int32), live_i, mid,
-        point, normal, shadow.contiguous(), pack.geom.mat16, scene.light_pos,
-        scene.light_color, pack.env)
-    record = (kind, tri_idx, valid, live & ~valid, shadow > 0)
+        texid, point, normal, shadow.contiguous(), geom.mat16, scene.texels,
+        scene.light_pos, scene.light_color, pack.env)
+    record = (kind, idx, valid, live & ~valid, shadow > 0)
     return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add), record
 
 
@@ -173,6 +297,7 @@ def trace_topology(scene, o: torch.Tensor, d: torch.Tensor,
     recording per segment which triangle each ray hit, whether it was a
     live hit or a live miss, and the shadow mask per light. Segments after
     every ray died record no hits (kind KIND_MISS, idx 0, all False)."""
+    check_supported(scene)
     if pack is None:
         pack = pack_trace(scene)
     R, L = o.shape[0], scene.n_lights
@@ -264,6 +389,7 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     shared by the tiles of one pass, so that its gather backward runs
     once. Segments with no live ray are skipped.
     """
+    check_supported(scene)
     if geom is None:
         geom = shade.pack_shade_geom(scene)
     R = o.shape[0]

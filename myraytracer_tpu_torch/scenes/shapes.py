@@ -1,8 +1,9 @@
 """Procedural triangle-mesh primitives for scene authoring (NumPy).
 
-The subset of ``myraytracer_tpu/scenes/shapes.py`` that the office scene
-needs, copied unchanged so both packages author identical geometry.
-Every generator returns (vertices [V,3] float32, faces [T,3] int32).
+Copied unchanged from ``myraytracer_tpu/scenes/shapes.py`` so both
+packages author identical geometry for the golden scenes: boxes,
+spheres, tori, cylinders, quads with UVs, and a checkerboard texture.
+Every mesh generator returns (vertices [V,3] float32, faces [T,3] int32).
 """
 
 from __future__ import annotations
@@ -64,6 +65,37 @@ def box(size=(1, 1, 1), center=(0, 0, 0)):
     return v, f
 
 
+def quad(p0, p1, p2, p3):
+    """Two triangles spanning the (planar) quad p0-p1-p2-p3 (CCW)."""
+    v = np.asarray([p0, p1, p2, p3], np.float32)
+    f = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    return v, f
+
+
+def torus(major: float, minor: float, n_major: int, n_minor: int, center=(0, 0, 0)):
+    """Torus in the xz-plane (axis = y)."""
+    cx, cy, cz = center
+    verts = []
+    for i in range(n_major):
+        a = 2 * np.pi * i / n_major
+        ca, sa = np.cos(a), np.sin(a)
+        for j in range(n_minor):
+            b = 2 * np.pi * j / n_minor
+            r = major + minor * np.cos(b)
+            verts.append([cx + r * ca, cy + minor * np.sin(b), cz + r * sa])
+    verts = np.asarray(verts, np.float32)
+    faces = []
+    for i in range(n_major):
+        for j in range(n_minor):
+            a = i * n_minor + j
+            b = i * n_minor + (j + 1) % n_minor
+            c = ((i + 1) % n_major) * n_minor + j
+            d = ((i + 1) % n_major) * n_minor + (j + 1) % n_minor
+            faces.append([a, b, c])
+            faces.append([b, d, c])
+    return verts, np.asarray(faces, np.int32)
+
+
 def cylinder(radius: float, height: float, n_seg: int, center=(0, 0, 0), capped=True):
     """Y-axis cylinder with optional caps."""
     cx, cy, cz = center
@@ -112,3 +144,20 @@ def transformed(v, scale=1.0, rotate_y: float = 0.0, translate=(0, 0, 0)):
         rot = np.float32([[c, 0, s], [0, 1, 0], [-s, 0, c]])
         out = out @ rot.T
     return out + np.float32(translate)
+
+
+def checkerboard(n: int = 8, size: int = 64, c0=(0.9, 0.9, 0.9), c1=(0.1, 0.1, 0.4)):
+    """Checkerboard texture [size, size, 3]."""
+    y, x = np.mgrid[0:size, 0:size]
+    cell = ((x * n // size) + (y * n // size)) % 2
+    tex = np.where(cell[..., None] == 0, np.float32(c0), np.float32(c1))
+    return tex.astype(np.float32)
+
+
+def plane_uv_quad(p0, p1, p2, p3):
+    """Quad with UVs mapping the full texture once."""
+    v, f = quad(p0, p1, p2, p3)
+    uvi = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    u = np.asarray([0, 1, 1, 0], np.float32)
+    vv = np.asarray([0, 0, 1, 1], np.float32)
+    return v, f, uvi, u, vv

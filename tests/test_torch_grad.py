@@ -326,7 +326,7 @@ def test_loss_grad_branches_agree(case, loss_grads):
 
 def test_tiled_loss_grad_equals_one_batch():
     """Replay tiles share one pack: the sum over tiles equals one batch."""
-    port = office("port", tess=2, w=64, h=32).build()
+    port = office("port", tess=2, w=64, h=32).build(device="cpu")
     cam = office("port", tess=2, w=64, h=32).camera
     tgt = torch.full((cam.height, cam.width, 3), 0.3)
     l1, g1 = prender.render_loss_grad_image(port, cam, tgt)
@@ -348,7 +348,7 @@ def test_restore_mirror_chain():
 def test_render_loss_grad_flat_batch_matches_image():
     """render_loss_grad over the block-ordered rays of a whole image (no
     padding: 32x32) equals render_loss_grad_image."""
-    port = office("port", tess=2, w=32, h=32).build()
+    port = office("port", tess=2, w=32, h=32).build(device="cpu")
     cam = office("port", tess=2, w=32, h=32).camera
     rng = np.random.default_rng(5)
     tgt = torch.from_numpy(rng.uniform(0, 1, (32, 32, 3)).astype(np.float32))

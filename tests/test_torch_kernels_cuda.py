@@ -31,7 +31,9 @@ from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import shade, tracer as tr
 from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops.intersect import INF
-from myraytracer_tpu_torch.ops.render import primary_rays_blocked, render
+from myraytracer_tpu_torch.ops.render import (primary_rays_blocked, render,
+                                               render_aa)
+from myraytracer_tpu_torch.scenes import kinds
 from myraytracer_tpu_torch.scenes.golden import scene_08_office
 
 pytestmark = pytest.mark.needs_cuda
@@ -124,25 +126,85 @@ def test_shading_kernels_match_plain(cuda):
     kind = torch.where(valid, shade.KIND_TRI, shade.KIND_MISS).to(torch.int32)
     tri_idx = torch.where(valid, hit.idx.clamp(min=0),
                           torch.zeros_like(hit.idx)).contiguous()
-    pre_args = (o, d, hit.t, kind, live, tri_idx, pack.geom.tri_pack,
-                pack.geom.mat16, data.light_pos)
+    aidx = torch.zeros_like(tri_idx)
+    _check_shading(data, pack, o, d, hit.t, kind, live, tri_idx, aidx, cuda)
+
+
+def _check_shading(data, pack, o, d, t, kind, live, tri_idx, aidx, dev):
+    """K3 and K4 vs their plain versions on one segment's inputs."""
+    R = o.shape[0]
+    g = pack.geom
+    pre_args = (o, d, t.contiguous(), kind, live, tri_idx, aidx, g.tri_pack,
+                g.ana16, g.mat16, data.light_pos, data.texels.shape[0])
+    before = LAUNCHES["shade_pre"]
     pre, pre_p = cs.shade_pre(*pre_args), cs.shade_pre_plain(*pre_args)
+    assert LAUNCHES["shade_pre"] == before + 1
     for a, b in zip(pre, pre_p):
         if a.dtype == torch.int32:
             assert torch.equal(a, b)
         else:
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
 
-    mat16 = pack.geom.mat16.clone()
+    mat16 = g.mat16.clone()
     mat16[:, 10] = 0.3          # mirrors: exercise the bounce outputs
     L = data.n_lights
-    shadow = (torch.rand((L, R), device=cuda) < 0.3).to(torch.int32)
-    weight = torch.rand(R, device=cuda)
-    ph_args = (o, d, weight, valid.to(torch.int32), live, pre[2], pre[0],
-               pre[1], shadow, mat16, data.light_pos, data.light_color,
+    shadow = (torch.rand((L, R), device=dev) < 0.3).to(torch.int32)
+    weight = torch.rand(R, device=dev)
+    valid = (kind != shade.KIND_MISS).to(torch.int32)
+    ph_args = (o, d, weight, valid, live, pre[2], pre[3], pre[0], pre[1],
+               shadow, mat16, data.texels, data.light_pos, data.light_color,
                pack.env)
     for a, b in zip(cs.shade_phong(*ph_args), cs.shade_phong_plain(*ph_args)):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    return pre
+
+
+@pytest.mark.parametrize("name", ["mixed", "mixed_nocyl_mirror", "triless",
+                                  "textured"])
+def test_analytic_and_texture_shading_match_plain(cuda, name):
+    """K3's sphere, plane, cylinder and texture branches and K4's texel
+    override, on real hits of the scenes that reach them."""
+    if name == "textured":
+        s = kinds.textured_scene(w=96, h=64)
+    else:
+        s = kinds.mixed_scene(mirror=0.35 if "mirror" in name else 0.0,
+                              cyl="nocyl" not in name, tris=name != "triless",
+                              w=96, h=64)
+    data = s.build(device=cuda)
+    pack = tr.pack_trace(data)
+    o, d = primary_rays_blocked(s.camera, cuda)
+    R = o.shape[0]
+    live = torch.rand(R, device=cuda) > 0.1
+    kind, pidx, aidx, t = tr.closest_hit(data, pack, o, d, live)
+    valid = kind != shade.KIND_MISS
+    zero = torch.zeros_like(pidx)
+    tri_idx = torch.where(kind == shade.KIND_TRI, pidx, zero).contiguous()
+    pre = _check_shading(data, pack, o, d, t, kind, live.to(torch.int32),
+                         tri_idx, torch.where(valid, aidx, zero).contiguous(),
+                         cuda)
+    kinds_hit = set(kind[valid].unique().tolist())
+    if name == "textured":
+        assert bool((pre[3] >= 0).any())
+    else:
+        assert {shade.KIND_SPHERE, shade.KIND_PLANE} <= kinds_hit
+        assert (shade.KIND_CYL in kinds_hit) == ("nocyl" not in name)
+
+
+@pytest.mark.parametrize("name", ["mixed", "textured"])
+def test_render_aa_kernels_match_plain(cuda, name):
+    s = (kinds.textured_scene(w=160, h=90) if name == "textured"
+         else kinds.mixed_scene(mirror=0.3, w=160, h=90))
+    data = s.build(device=cuda)
+    before = dict(LAUNCHES)
+    got = render_aa(data, s.camera, budget_frac=0.3)
+    for k in ("phase1_exact", "cluster_scan_closest", "cluster_scan_anyhit",
+              "shade_pre", "shade_phong"):
+        assert LAUNCHES[k] > before[k], k
+    want = render_aa(data, s.camera, budget_frac=0.3,
+                     cfg=tr.TraceConfig(plain=True))
+    diff = (got - want).abs().amax(dim=-1)
+    assert float((diff <= 1e-4).float().mean()) >= 0.995
+    assert bool(torch.isfinite(got).all())
 
 
 def test_render_kernels_match_plain(cuda):
@@ -193,6 +255,25 @@ def test_wrappers_reject_bad_inputs(cuda):
         cc.phase1_exact(o4, d4, t0, act.float(), cc.cluster_boxes(data))
     with pytest.raises(ValueError, match="bb"):
         cc.phase1_exact(o4, d4, t0, act, cc.cluster_boxes(data).cpu())
+
+
+def test_shading_wrappers_reject_bad_tables(cuda):
+    s = kinds.textured_scene(w=32, h=32)
+    data = s.build(device=cuda)
+    pack = tr.pack_trace(data)
+    o, d = primary_rays_blocked(s.camera, cuda)
+    R = o.shape[0]
+    i0 = torch.zeros(R, dtype=torch.int32, device=cuda)
+    t = torch.ones(R, device=cuda)
+    g = pack.geom
+    with pytest.raises(ValueError, match=r"ana16 must be \[N, 16\]"):
+        cs.shade_pre(o, d, t, i0, i0, i0, i0, g.tri_pack,
+                     g.ana16[:, :8].contiguous(), g.mat16, data.light_pos,
+                     data.texels.shape[0])
+    with pytest.raises(ValueError, match=r"texels must be \[N, 3\]"):
+        cs.shade_phong(o, d, t, i0, i0, i0, i0 - 1, o, o,
+                       i0.reshape(1, R), g.mat16, data.texels.reshape(-1),
+                       data.light_pos, data.light_color, pack.env)
 
 
 def _segment_inputs(dev, n_lights, seed=7, R=5000):

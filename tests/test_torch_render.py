@@ -58,7 +58,7 @@ def test_mirror_mesh_render_matches_reference():
 
 
 def test_tiled_render_equals_whole_frame():
-    data = office("port", tess=2, w=64, h=48).build()
+    data = office("port", tess=2, w=64, h=48).build(device="cpu")
     cam = office("port", tess=2, w=64, h=48).camera
     whole = prender.render(data, cam)
     # 3 screen blocks per tile: the last tile is padded
@@ -76,6 +76,8 @@ def test_fit_tile_matches_reference_rule():
 
 @pytest.mark.parametrize("what", ["sphere", "plane", "cylinder", "texture"])
 def test_unported_scene_kinds_raise(what):
+    """The forward renders every kind; the training step still takes
+    untextured triangle meshes only."""
     s = mesh_scene("port")
     mat = Material()
     if what == "sphere":
@@ -89,12 +91,16 @@ def test_unported_scene_kinds_raise(what):
         s.add_mesh(TriangleMesh(
             v, f, material=mat, uv_indices=f, u_coords=np.zeros(8),
             v_coords=np.zeros(8), texture=np.ones((2, 2, 3), np.float32)))
+    data = s.build(device="cpu")
+    img = prender.render(data, s.camera)
+    assert bool(torch.isfinite(img).all())
+    target = torch.zeros_like(img)
     with pytest.raises(NotImplementedError):
-        prender.render(s.build(), s.camera)
+        prender.render_loss_grad_image(data, s.camera, target)
 
 
 def test_plain_config_runs_the_same_path_on_cpu():
-    data = office("port", tess=2, w=32, h=32).build()
+    data = office("port", tess=2, w=32, h=32).build(device="cpu")
     cam = office("port", tess=2, w=32, h=32).camera
     a = prender.render(data, cam)
     b = prender.render(data, cam, cfg=tr.TraceConfig(plain=True))

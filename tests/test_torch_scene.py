@@ -90,7 +90,7 @@ def test_build_matches_reference(name, monkeypatch):
     monkeypatch.setenv("MRT_NO_NATIVE", "1")
     make = office if name == "office" else mesh_scene
     ref = make("ref").build()
-    got = make("port").build()
+    got = make("port").build(device="cpu")
     want, static = ref_arrays(ref)
     for f in ARRAY_FIELDS:
         a = getattr(got, f).numpy()
@@ -104,7 +104,7 @@ def test_build_matches_reference(name, monkeypatch):
 
 
 def test_office_shapes():
-    data = office("port").build()
+    data = office("port").build(device="cpu")
     assert data.n_lights == 1                      # zero-colour light culled
     assert data.n_segments == 1                    # no mirrors
     assert not data.has_textures
@@ -134,7 +134,9 @@ def test_imports_without_jax():
             "from myraytracer_tpu_torch.ops import render, tracer, cuda_shade; "
             "from myraytracer_tpu_torch.ops import refit, shade_grad; "
             "from myraytracer_tpu_torch.parallel import shard_render; "
-            "from myraytracer_tpu_torch.scenes import golden; "
+            "from myraytracer_tpu_torch.ops import intersect, texture; "
+            "from myraytracer_tpu_torch.scenes import golden, kinds; "
+            "from myraytracer_tpu_torch.utils import image; "
             "print(m.render.__module__, m.render_loss_grad_image.__module__, "
             "m.split_params.__module__)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -166,3 +168,18 @@ def test_packing_matches_reference():
     np.testing.assert_allclose(pack_cluster_constants(port).numpy(),
                                np.asarray(r_pack_cluster_constants(ref)),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_build_defaults_to_cuda():
+    """Scene.build() targets the GPU unless the caller asks for the CPU;
+    without a GPU it raises instead of falling back."""
+    import inspect
+
+    assert inspect.signature(Scene.build).parameters["device"].default == "cuda"
+    s = mesh_scene("port")
+    if torch.cuda.is_available():
+        assert s.build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            s.build()
+    assert s.build(device="cpu").device.type == "cpu"

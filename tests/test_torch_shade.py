@@ -53,6 +53,19 @@ def _inputs(n_lights, seed=0):
                 lc=np.array(ref.light_color)[:n_lights], rng=rng)
 
 
+def _pre(x, mat16, light_pos=None):
+    """The port's K3 on a triangle-only segment (no analytic rows)."""
+    R = x["o"].shape[0]
+    return cs.shade_pre(
+        torch.from_numpy(x["o"]), torch.from_numpy(x["d"]),
+        torch.from_numpy(x["t"]), torch.from_numpy(x["kind"]),
+        torch.from_numpy(x["live"].astype(np.int32)),
+        torch.from_numpy(x["tri_idx"]), torch.zeros(R, dtype=torch.int32),
+        torch.from_numpy(x["tri_pack"]), torch.zeros((1, 16)),
+        torch.from_numpy(mat16),
+        torch.from_numpy(x["lp"]) if light_pos is None else light_pos)
+
+
 @pytest.mark.parametrize("n_lights", [1, 2])
 def test_shade_pre_matches_reference(n_lights):
     x = _inputs(n_lights)
@@ -64,20 +77,16 @@ def test_shade_pre_matches_reference(n_lights):
         jnp.asarray(x["mat16"]), jnp.asarray(x["lp"]), interpret=True)
     point, normal, mid, _, so, sd, st, sact = [
         None if w is None else np.asarray(w) for w in want]
-    got = cs.shade_pre(
-        torch.from_numpy(x["o"]), torch.from_numpy(x["d"]),
-        torch.from_numpy(x["t"]), torch.from_numpy(x["kind"]),
-        torch.from_numpy(x["live"].astype(np.int32)),
-        torch.from_numpy(x["tri_idx"]), torch.from_numpy(x["tri_pack"]),
-        torch.from_numpy(x["mat16"]), torch.from_numpy(x["lp"]))
+    got = _pre(x, x["mat16"])
     g = [t.numpy() for t in got]
     R = x["o"].shape[0]
-    assert g[3].shape == (n_lights * R, 4)
+    assert g[4].shape == (n_lights * R, 4)
     for name, a, b in (("point", g[0], point), ("normal", g[1], normal),
-                       ("so", g[3], so), ("sd", g[4], sd), ("st", g[5], st)):
+                       ("so", g[4], so), ("sd", g[5], sd), ("st", g[6], st)):
         np.testing.assert_allclose(a, b, err_msg=name, **TOL)
     np.testing.assert_array_equal(g[2], mid)
-    np.testing.assert_array_equal(g[6], sact)
+    np.testing.assert_array_equal(g[7], sact)
+    assert (g[3] == -1).all()                  # untextured: no atlas row
     assert sact.any() and not sact.all()
 
 
@@ -88,13 +97,8 @@ def test_shade_phong_matches_reference(n_lights):
     R = x["o"].shape[0]
     mat16 = x["mat16"].copy()
     mat16[0, 10] = 0.4          # one mirror material: exercise the bounce
-    pre = cs.shade_pre(
-        torch.from_numpy(x["o"]), torch.from_numpy(x["d"]),
-        torch.from_numpy(x["t"]), torch.from_numpy(x["kind"]),
-        torch.from_numpy(x["live"].astype(np.int32)),
-        torch.from_numpy(x["tri_idx"]), torch.from_numpy(x["tri_pack"]),
-        torch.from_numpy(mat16), torch.from_numpy(x["lp"]))
-    point, normal, mid = (t.numpy() for t in pre[:3])
+    pre = _pre(x, mat16)
+    point, normal, mid, texid = (t.numpy() for t in pre[:4])
     weight = np.where(rng.uniform(size=R) < 0.1, 0.0,
                       rng.uniform(0.2, 1.0, R)).astype(np.float32)
     live = x["live"] & (weight > 0)
@@ -113,8 +117,9 @@ def test_shade_phong_matches_reference(n_lights):
         torch.from_numpy(x["o"]), torch.from_numpy(x["d"]),
         torch.from_numpy(weight), torch.from_numpy(valid.astype(np.int32)),
         torch.from_numpy(live.astype(np.int32)), torch.from_numpy(mid),
-        torch.from_numpy(point), torch.from_numpy(normal),
-        torch.from_numpy(shadow.astype(np.int32)), torch.from_numpy(mat16),
+        torch.from_numpy(texid), torch.from_numpy(point),
+        torch.from_numpy(normal), torch.from_numpy(shadow.astype(np.int32)),
+        torch.from_numpy(mat16), x["port"].texels,
         torch.from_numpy(x["lp"]), torch.from_numpy(x["lc"]),
         torch.from_numpy(env))
     for name, a, b in zip(("add", "o2", "d2", "w2"), got, want):
@@ -125,13 +130,8 @@ def test_shade_phong_matches_reference(n_lights):
 
 def test_shade_pre_without_lights():
     x = _inputs(0)
-    got = cs.shade_pre(
-        torch.from_numpy(x["o"]), torch.from_numpy(x["d"]),
-        torch.from_numpy(x["t"]), torch.from_numpy(x["kind"]),
-        torch.from_numpy(x["live"].astype(np.int32)),
-        torch.from_numpy(x["tri_idx"]), torch.from_numpy(x["tri_pack"]),
-        torch.from_numpy(x["mat16"]), torch.zeros((0, 3)))
-    assert got[3].shape == (0, 4) and got[6].shape == (0,)
+    got = _pre(x, x["mat16"], light_pos=torch.zeros((0, 3)))
+    assert got[4].shape == (0, 4) and got[7].shape == (0,)
 
 
 def test_shade_geom_matches_reference_rows():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's office render or training step on one GPU.
 
-    python3 tools/torch_profile.py [--fwd-bwd] [--trace out.json]
+    python3 tools/torch_profile.py [--fwd-bwd | --scene NAME] [--trace out.json]
 
 Runs office (tess 10, 1920x1080) once to build and warm up, then five
 times under torch.profiler, and prints: the wall time per run (the
@@ -9,8 +9,10 @@ profiler inflates it), the device-busy time (summed kernel time; one
 stream, so kernels do not overlap), and device time per kernel, largest
 first. By default the run is the forward render; ``--fwd-bwd`` profiles
 the training step ``render_loss_grad_image`` instead (loss against a
-target image and all 23 parameter gradients). ``--trace`` also writes a
-Chrome trace. Needs a CUDA device.
+target image and all 23 parameter gradients); ``--scene NAME`` profiles
+``render_aa`` of that golden scene (e.g. o_04_molecule) at its golden
+resolution and budget. ``--trace`` also writes a Chrome trace. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--fwd-bwd", action="store_true",
                     help="profile render_loss_grad_image, not render")
+    ap.add_argument("--scene", default=None,
+                    help="profile render_aa of this golden scene instead")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
     reps, tess, width, height = 5, 10, 1920, 1080
@@ -68,15 +72,25 @@ def main() -> int:
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
-    from myraytracer_tpu_torch.scenes.golden import scene_08_office
+    from myraytracer_tpu_torch.ops.render import (render, render_aa,
+                                                   render_loss_grad_image)
+    from myraytracer_tpu_torch.scenes.golden import (GOLDEN_SCENES,
+                                                     scene_08_office)
 
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    scene = scene_08_office(tess=tess, resolution=(width, height))
+    if args.scene:
+        builder, budget = GOLDEN_SCENES[args.scene]
+        scene = builder()
+        width, height = scene.camera.width, scene.camera.height
+    else:
+        scene = scene_08_office(tess=tess, resolution=(width, height))
     data = scene.build(device="cuda:0")
-    if args.fwd_bwd:
+    if args.scene:
+        def step():
+            return render_aa(data, scene.camera, budget_frac=budget)
+    elif args.fwd_bwd:
         target = 0.9 * render(data, scene.camera) + 0.02
 
         def step():
@@ -104,9 +118,12 @@ def main() -> int:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     own = sum(r[0] for r in rows if r[2].startswith("(anonymous namespace)::"))
-    what = "fwd+bwd step" if args.fwd_bwd else "render"
-    print(f"{gpu}; office tess {tess} {width}x{height}, {data.n_tris} "
-          f"triangles; profiled: {what}")
+    what = ("render_aa" if args.scene
+            else "fwd+bwd step" if args.fwd_bwd else "render")
+    where = args.scene or f"office tess {tess}"
+    print(f"{gpu}; {where} {width}x{height}, {data.n_tris} triangles, "
+          f"{data.n_spheres + data.n_planes + data.n_cylinders} analytic "
+          f"primitives; profiled: {what}")
     print(f"wall {wall * 1e3:.3f} ms/{what} (profiled), device busy "
           f"{busy:.3f} ms/{what} ({100 * busy / (wall * 1e3):.1f}% of the "
           f"window), of which the port's CUDA kernels {own:.3f} ms")
