@@ -38,7 +38,22 @@ nvcc. Phases:
      through render_aa;
  12. office at 1920x1080 through render_aa, warm, three times, with the
      AA budget sized from the pass-1 image as bench.py sizes it, and
-     whether that budget covers every pixel above the threshold.
+     whether that budget covers every pixel above the threshold;
+ 13. the BVH walk K7 against its plain version on the office 1920x1080
+     frame's primary rays (closest hit) and on the shadow batch K3 emits
+     for those hits (any-hit, t_max, active): ids, errors, both times;
+     beside it, on the same rays, the cluster scan's K2 + K1 and K1'
+     times and its ids' agreement with K7's;
+ 14. office at 1920x1080 with tri_method="bvh": render, render_aa and
+     render_loss_grad_image, each warm and three times (median seconds,
+     launches of that run: the walk launched, no cluster kernel), held
+     against the cluster path's image, loss and gradients;
+ 15. the seven goldens with triangles through render_aa with "bvh" at
+     golden resolution, against the committed PNGs (phase 11's bars);
+ 16. training on o_04 (spheres and planes) and o_10 (textured, bilinear
+     fetch) at golden resolution with "bvh": three warm steps (median
+     seconds, finite loss and gradients) and three Adam steps in which
+     the loss falls.
 
 Every kernel entry of the JSON summary carries its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -46,8 +61,10 @@ over 3.35 TB/s and the operations these inputs need over 67 TFLOP/s
 (fp32, H100 SXM data sheet); the operation counts per ray, box or
 triangle test are estimates from the plain versions' expressions. Both
 count what this run's data needs: a gathered table only the distinct
-rows its indices select, and the scans the slab tests, visits and real
-triangles (not padded slots) that the plain scan counts on these inputs.
+rows its indices select, the scans the slab tests, visits and real
+triangles (not padded slots) that the plain scan counts on these inputs,
+and the walk the distinct node, link and corner rows and the node steps
+and slot solves that the plain walk counts.
 
 Prints one JSON line with the per-kernel summary, then a final JSON status
 line. Any failed check raises and the exit code is non-zero; without a
@@ -83,6 +100,12 @@ KERNELS = (
      "myraytracer_tpu/ops/shade_grad.py:516"),
 )
 
+#: K7, the BVH walk behind TraceConfig(tri_method="bvh")
+BVH_KERNELS = tuple(
+    (name, "myraytracer_tpu_torch/csrc/bvh_walk.cu",
+     "tools/studies/pallas_traverse.py:79")
+    for name in ("bvh_walk_closest", "bvh_walk_anyhit"))
+
 #: K3/K4's analytic and texture branches, each its own summary entry:
 #: (entry, launch counter, source, TPU kernel, the scene whose first
 #: segment compares it and whose render_aa run counts its launches)
@@ -110,9 +133,16 @@ OPS_SEG_RAY, OPS_SEG_LIGHT, BWD_OVER_FWD = 150, 45, 3
 #: the gallery's bars: kernels vs plain, and vs the committed PNGs
 GALLERY_AGREE, PNG_CELL_MEAN, PNG_PIX, PNG_PIX_FRAC = 0.995, 1e-3, 2 / 255, 0.99
 
-#: kernels each path must launch: the forward render, the training step
-FWD_KERNELS = ("phase1_exact", "cluster_scan_closest", "cluster_scan_anyhit",
-               "shade_pre", "shade_phong")
+#: kernels each path must launch: the forward render (cluster scan, BVH
+#: walk); the cluster kernels, which the "bvh" path must not launch
+CLUSTER_KERNELS = ("phase1_exact", "cluster_scan_closest",
+                   "cluster_scan_anyhit")
+FWD_KERNELS = CLUSTER_KERNELS + ("shade_pre", "shade_phong")
+BVH_FWD_KERNELS = ("bvh_walk_closest", "bvh_walk_anyhit", "shade_pre",
+                   "shade_phong")
+
+#: the training scenes of phase 16 with their texture fetch
+TRAIN_GOLDENS = (("o_04_molecule", "nearest"), ("o_10_pokemon", "bilinear"))
 
 #: kernel vs plain version. Shading (K3/K4, built without FMA
 #: contraction) and phase-1 (K2): float outputs within rtol 1e-5 / atol
@@ -505,25 +535,27 @@ def compare_training_paths(data, cam_small):
               f"worst diff per key, in max|a|: {ratios}")
 
 
-def train_steps(data, camera, steps: int = 3) -> list:
-    """Phase 9b: Adam on mat_diffuse and light_color toward the render of
-    the scene with mat_diffuse * 0.8; returns the losses."""
+def train_steps(data, camera, steps: int = 3, cfg=None) -> list:
+    """Phase 9b (and 16): Adam on mat_diffuse and light_color toward the
+    render of the scene with mat_diffuse * 0.8; returns the losses."""
     import dataclasses
 
     import torch
 
     from myraytracer_tpu_torch import merge_params, render_loss_grad_image
+    from myraytracer_tpu_torch.ops import tracer as tr
     from myraytracer_tpu_torch.ops.render import render
 
+    cfg = cfg or tr.TraceConfig()
     target = render(dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.8),
-                    camera)
+                    camera, cfg=cfg)
     p = {k: getattr(data, k).clone().requires_grad_(True)
          for k in ("mat_diffuse", "light_color")}
     opt = torch.optim.Adam(p.values(), lr=0.02)
     losses = []
     for step in range(steps + 1):
         scene = merge_params(data, {k: v.detach() for k, v in p.items()})
-        loss, grads = render_loss_grad_image(scene, camera, target)
+        loss, grads = render_loss_grad_image(scene, camera, target, cfg=cfg)
         losses.append(float(loss))
         if step == steps:
             break
@@ -692,6 +724,251 @@ def office_aa(data, camera):
         check(launches[k] > 0, f"office render_aa: {k} was not launched")
 
 
+def walk_bound(rays, work: dict) -> dict:
+    """K7's bound from the work this run's data needs, as the plain walk
+    counts it (``work``, its ``stats``): each ray's xyz origin and
+    direction, t_max and active flag read once and t and idx written
+    once; the distinct node rows (32 B), link rows (8 B) and triangles
+    (three corners, 36 B) read; a slab test per node step and a slot
+    solve per leaf slot."""
+    n_bytes = (rays * (12 + 12 + 4 + 4 + 4 + 4) + work["nodes"] * 32
+               + work["links"] * 8 + work["tris"] * 36)
+    return bound(n_bytes, work["visits"] * OPS_SLAB + work["slots"] * OPS_TRI)
+
+
+def compare_walk(name, data, o, d, kw):
+    """K7 vs its plain version on one query: ids equal, t equal (both
+    without FMA contraction), times, bound. Returns the kernel's TriHit
+    and the summary entry."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import traverse as trv
+
+    hit = trv.traverse_bvh(data, o, d, **kw)
+    work = {}
+    hit_p = trv.traverse_bvh_plain(data, o, d, stats=work, **kw)
+    n_bad = int((hit.idx != hit_p.idx).sum())
+    check(n_bad == 0, f"{name}: ids differ from the plain walk on {n_bad} rays")
+    both = hit.idx >= 0
+    err = float((hit.t[both] - hit_p.t[both]).abs().max()) if bool(
+        both.any()) else 0.0
+    check(bool(torch.equal(hit.t, hit_p.t)), f"{name}: t differs, max {err}")
+    rep = dict(max_abs_err=err,
+               ms=time_ms(lambda: trv.traverse_bvh(data, o, d, **kw), 10),
+               plain_ms=time_ms(lambda: trv.traverse_bvh_plain(data, o, d,
+                                                               **kw), 1),
+               **walk_bound(o.shape[0], work))
+    print(f"{name}: {o.shape[0]} rays, hits {float(both.float().mean()):.4f}, "
+          f"ids equal, max_abs_err(t)={err}; {rep['ms']:.4f} ms vs plain "
+          f"{rep['plain_ms']:.1f} ms; bound {rep['bound_ms']:.4f} ms "
+          f"({rep['bound_by']}); work: {work['visits'] / o.shape[0]:.1f} "
+          f"node steps and {work['slots'] / o.shape[0]:.2f} slot solves a "
+          f"ray, {work['nodes']} nodes, {work['links']} links, "
+          f"{work['tris']} triangles read")
+    return hit, rep
+
+
+def compare_bvh_walk(data, camera, report):
+    """Phase 13: K7 vs its plain version on the office 1080p primary rays
+    and their shadow batch; K2 + K1 and K1' on the same rays."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import cuda_cluster as cc
+    from myraytracer_tpu_torch.ops import cuda_shade as cs
+    from myraytracer_tpu_torch.ops import shade, tracer as tr
+    from myraytracer_tpu_torch.ops.render import primary_rays_blocked
+
+    cfg = tr.TraceConfig(tri_method="bvh")
+    pack = tr.pack_trace(data, cfg)
+    o, d = primary_rays_blocked(camera, data.device)
+    R = o.shape[0]
+    kw = dict(tri_flat=pack.tri_flat)
+    hit, report["bvh_walk_closest"] = compare_walk(
+        "bvh_walk_closest", data, o, d, kw)
+
+    # the shadow batch K3 emits for the walk's hits
+    live = torch.ones(R, dtype=torch.bool, device=o.device)
+    kind, pidx, aidx, t = tr.closest_hit(data, pack, o, d, live, cfg)
+    zero = torch.zeros_like(pidx)
+    g = pack.geom
+    pre = cs.shade_pre(o, d, t.contiguous(), kind, live.to(torch.int32),
+                       torch.where(kind == shade.KIND_TRI, pidx,
+                                   zero).contiguous(), zero, g.tri_pack,
+                       g.ana16, g.mat16, data.light_pos, data.texels.shape[0])
+    so, sd, st, sact = pre[4:]
+    act = sact > 0
+    akw = dict(kw, t_max=st, any_hit=True, active=act)
+    occ, report["bvh_walk_anyhit"] = compare_walk(
+        "bvh_walk_anyhit", data, so, sd, akw)
+
+    # the yardstick: the cluster scan on the same rays
+    cl_const = cc.pack_cluster_constants(data)
+    o4, d4, t0, act4 = cc.pad_rays(o, d, None, live)
+    bb = cc.cluster_boxes(data)
+    key = cc.phase1_exact(o4, d4, t0, act4, bb)
+    order, lb, n = cc.visit_lists(key)
+    scan = (o4, d4, t0, act4, bb, cl_const, order, lb, n, data.cl_first,
+            data.cl_count, False)
+    k2 = time_ms(lambda: cc.phase1_exact(o4, d4, t0, act4, bb), 10)
+    k1 = time_ms(lambda: cc.cluster_scan(*scan), 10)
+    cl = cc.intersect_clusters(data, o, d, cl_const=cl_const)
+    query = time_ms(lambda: cc.intersect_clusters(data, o, d,
+                                                  cl_const=cl_const), 5)
+    so4, sd4, st0, sact4 = cc.pad_rays(so, sd, st, act)
+    hkey = cc.phase1_keys(data, so4, sd4, st0, sact4, True, True)
+    hscan = (so4, sd4, st0, sact4, bb, cl_const, *cc.visit_lists(hkey),
+             data.cl_first, data.cl_count, True)
+    k1a = time_ms(lambda: cc.cluster_scan(*hscan), 10)
+    cl_occ = cc.intersect_clusters(data, so, sd, t_max=st, any_hit=True,
+                                   active=act, cl_const=cl_const)
+    qa = time_ms(lambda: cc.intersect_clusters(
+        data, so, sd, t_max=st, any_hit=True, active=act,
+        cl_const=cl_const), 5)
+    id_agree = float((cl.idx == hit.idx).float().mean())
+    occ_agree = float(((cl_occ.idx >= 0) == (occ.idx >= 0)).float().mean())
+    check(id_agree >= ID_AGREE, f"K7 vs the cluster scan: ids agree on "
+          f"{id_agree} of the primary rays")
+    check(occ_agree >= ID_AGREE, f"K7 vs K1': occlusion agrees on {occ_agree}")
+    yard = dict(k2_ms=k2, k1_ms=k1, cluster_query_ms=query, k1_anyhit_ms=k1a,
+                cluster_anyhit_query_ms=qa, id_agreement=id_agree,
+                occlusion_agreement=occ_agree)
+    report["bvh_walk_closest"]["vs_cluster"] = yard
+    print(f"K7 vs the cluster scan on the same rays: K7 closest "
+          f"{report['bvh_walk_closest']['ms']:.4f} ms vs K2 {k2:.4f} + K1 "
+          f"{k1:.4f} ms (whole cluster query {query:.4f} ms), ids agree on "
+          f"{id_agree:.6f}; K7 any-hit "
+          f"{report['bvh_walk_anyhit']['ms']:.4f} ms vs K1' {k1a:.4f} ms "
+          f"(whole hull query {qa:.4f} ms), occlusion agrees on "
+          f"{occ_agree:.6f}")
+
+
+def office_bvh(data, camera, report):
+    """Phase 14: office 1080p through render, render_aa and the training
+    step with tri_method="bvh", against the cluster path."""
+    import math
+
+    import torch
+
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import (AA_THRESHOLD, _deviation,
+                                                  render, render_aa,
+                                                  render_loss_grad_image)
+
+    cfg = tr.TraceConfig(tri_method="bvh")
+    img_c = render(data, camera)
+    frac = float((_deviation(img_c) > AA_THRESHOLD).float().mean())
+    budget = max(0.01, math.ceil(frac * 1.1 / 0.0025) * 0.0025)
+    target = 0.9 * img_c + 0.02
+    runs = (("render", lambda c: render(data, camera, cfg=c)),
+            ("render_aa", lambda c: render_aa(data, camera,
+                                               budget_frac=budget, cfg=c)),
+            ("loss-grad", lambda c: render_loss_grad_image(
+                data, camera, target, cfg=c)))
+    for name, fn in runs:
+        got, secs, launches = timed(lambda: fn(cfg))
+        want = fn(tr.TraceConfig())
+        for k in BVH_FWD_KERNELS:
+            check(launches[k] > 0, f"bvh {name}: {k} was not launched")
+        for k in CLUSTER_KERNELS:
+            check(launches[k] == 0, f"bvh {name}: {k} was launched")
+        if name == "render":
+            for k, _, _ in BVH_KERNELS:
+                report[k]["launches"] = launches[k]
+        if name == "loss-grad":
+            (loss, grads), (loss_c, grads_c) = got, want
+            rel = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+            check(rel <= RTOL, f"bvh loss-grad: loss rel diff {rel}")
+            check(set(grads) == set(grads_c) and len(grads) == 23,
+                  "bvh loss-grad: gradient keys")
+            worst = max(close_scaled(f"bvh grad {k}", grads[k], grads_c[k],
+                                     REL_GRAD)
+                        for k in grads if grads[k].numel())
+            what = (f"loss {float(loss)} vs cluster {float(loss_c)} (rel "
+                    f"{rel:.3g}), worst gradient diff {worst:.3g} * max|a|")
+        else:
+            check(bool(torch.isfinite(got).all()), f"bvh {name}: not finite")
+            agree = float(((got - want).abs().amax(dim=-1) <= 1e-4)
+                          .float().mean())
+            check(agree >= GALLERY_AGREE, f"bvh {name}: {agree} of pixels "
+                  f"within 1e-4 of the cluster path's image")
+            what = f"{agree:.6f} of pixels within 1e-4 of the cluster path's"
+        med = statistics.median(secs)
+        print(f"bvh {name} {camera.width}x{camera.height}"
+              f"{f' (budget {budget})' if name == 'render_aa' else ''}: "
+              f"median {med:.4f} s of {secs}, "
+              f"{camera.width * camera.height / med:.4g} rays/s; {what}; "
+              f"launches {launches}")
+
+
+def gallery_bvh(scenes):
+    """Phase 15: the goldens with triangles through render_aa with
+    tri_method="bvh" at golden resolution, against the committed PNGs."""
+    import numpy as np
+
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render_aa
+    from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
+    from myraytracer_tpu_torch.utils.image import read_png
+
+    cfg = tr.TraceConfig(tri_method="bvh")
+    names = [n for n in GOLDEN_SCENES if scenes[n][1].n_tris]
+    check(len(names) == 7, f"{len(names)} goldens with triangles")
+    for name in names:
+        scene, data = scenes[name]
+        cam = scene.camera
+        budget = GOLDEN_SCENES[name][1]
+        img, secs, launches = timed(
+            lambda: render_aa(data, cam, budget_frac=budget, cfg=cfg))
+        img_np = img.cpu().numpy()
+        ref = read_png(os.path.join(REPO, "outputs", f"{name}.png"))
+        cell = float(np.abs(cells(img_np) - cells(ref)).mean())
+        pix = float((np.abs(img_np - ref).max(axis=-1)
+                     <= PNG_PIX + 1e-6).mean())
+        print(f"bvh {name} {cam.width}x{cam.height} render_aa: median "
+              f"{statistics.median(secs):.4f} s of {secs}; vs "
+              f"outputs/{name}.png: mean 8x8 cell delta {cell:.3g}, "
+              f"{pix:.6f} of pixels within 2/255; launches {launches}")
+        check(bool(np.isfinite(img_np).all()), f"bvh {name}: not finite")
+        check(cell < PNG_CELL_MEAN, f"bvh {name}: cell delta {cell}")
+        check(pix >= PNG_PIX_FRAC, f"bvh {name}: {pix} of pixels within 2/255")
+        for k in BVH_FWD_KERNELS:
+            check(launches[k] > 0, f"bvh {name}: {k} was not launched")
+        for k in CLUSTER_KERNELS:
+            check(launches[k] == 0, f"bvh {name}: {k} was launched")
+
+
+def train_goldens(scenes):
+    """Phase 16: the training step on o_04 (spheres, planes) and o_10
+    (textured, bilinear fetch) at golden resolution with "bvh"."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
+
+    for name, filt in TRAIN_GOLDENS:
+        scene, data = scenes[name]
+        cam = scene.camera
+        cfg = tr.TraceConfig(tri_method="bvh", texture_filter=filt)
+        check(not cfg.fused_grad(data), f"{name}: takes the fused segment")
+        target = 0.9 * render(data, cam, cfg=cfg) + 0.02
+        (loss, grads), secs, launches = timed(
+            lambda: render_loss_grad_image(data, cam, target, cfg=cfg))
+        check(bool(torch.isfinite(loss)), f"{name}: loss {float(loss)}")
+        check(len(grads) == 23, f"{name}: {len(grads)} gradient keys")
+        for k, g in grads.items():
+            check(bool(torch.isfinite(g).all()), f"{name}: gradient {k} "
+                  f"is not finite")
+        moved = sorted(k for k, g in grads.items()
+                       if g.numel() and float(g.abs().max()) > 0)
+        losses = train_steps(data, cam, cfg=cfg)
+        print(f"train {name} {cam.width}x{cam.height} ({filt}): median "
+              f"{statistics.median(secs):.4f} s of {secs}, loss "
+              f"{float(loss)}, nonzero gradients {moved}; Adam losses "
+              f"{losses}; launches {launches}")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall: "
+              f"{losses}")
+
+
 def build_gallery(dev):
     """The ten goldens at their golden resolution, and the mixed scene at
     1920x1080, on the card: name -> (Scene, SceneData)."""
@@ -798,8 +1075,12 @@ def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
     scenes = build_gallery(dev)
     compare_branch_kernels(scenes, dev, report)
     gallery(scenes, dev, report)
-    del scenes
     office_aa(data, scene.camera)
+    compare_bvh_walk(data, scene.camera, report)
+    office_bvh(data, scene.camera, report)
+    gallery_bvh(scenes)
+    train_goldens(scenes)
+    del scenes
     return report
 
 
@@ -830,7 +1111,7 @@ def main() -> int:
             print("  " + line.strip())
 
     report = run()
-    entries = [(n, src, rep) for n, src, rep in KERNELS] + [
+    entries = [(n, src, rep) for n, src, rep in KERNELS + BVH_KERNELS] + [
         (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,
                     **report[name]) for name, src, rep in entries]

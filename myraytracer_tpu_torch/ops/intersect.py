@@ -78,7 +78,13 @@ def ray_cylinder(o, d, center, axis, radius, height):
     degenerate = a < 1e-12
     a_safe = torch.where(degenerate, torch.ones_like(a), a)
     disc = b * b - 4.0 * a_safe * c
-    sq = vm.sqrt(torch.clamp(disc, min=0.0))
+    # sqrt(max(disc, 0)) with a double where: the same values, and a
+    # finite gradient for the rays whose disc <= 0 (the training replay
+    # evaluates this branch for every ray; sqrt'(0) = inf would turn
+    # their zero cotangents into NaN)
+    pos = disc > 0.0
+    sq = torch.where(pos, vm.sqrt(torch.where(pos, disc, torch.ones_like(a))),
+                     torch.zeros_like(a))
     inv2a = 0.5 / a_safe
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a

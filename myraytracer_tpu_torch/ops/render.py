@@ -65,7 +65,7 @@ def _trace_tiled(scene, o, d, cfg: tr.TraceConfig, tile: int,
                  quantum: int = 1) -> torch.Tensor:
     """Trace a flat [R, 3] ray batch in tiles of ``tile`` rays."""
     R = o.shape[0]
-    pack = tr.pack_trace(scene)
+    pack = tr.pack_trace(scene, cfg)
     if R <= tile:
         return tr.trace(scene, o, d, cfg, pack)
     tile = _fit_tile(R, tile, quantum)
@@ -251,7 +251,10 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
     Refit, then the topology of every tile (no gradients), then the
     replay of every tile against one pack of the parameters, summed, and
     one backward, so the pack's gather backward runs once per pass.
-    Padded rays (o 0, d 1, target 0) carry w 0. The four phases are
+    Padded rays (o 0, d 1, target 0) carry w 0. The replay of a tile runs
+    under ``torch.utils.checkpoint`` unless it takes the fused K5/K6
+    segment (:meth:`tr.TraceConfig.fused_grad`, the reference's rule),
+    whose residuals are its inputs. The four phases are
     profiler ranges (``mrt.refit``, ``mrt.topology``, ``mrt.replay``,
     ``mrt.backward``) that tools/torch_profile.py reports.
     """
@@ -274,7 +277,7 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
 
     o_t, d_t, t_t, w_t = tiles(o_p), tiles(d_p), tiles(t_p), tiles(w_p)
     with rf("mrt.topology"):
-        pack = tr.pack_trace(scene)
+        pack = tr.pack_trace(scene, cfg)
         topo = [tr.trace_topology(scene, ot, dt, cfg, pack)
                 for ot, dt in zip(o_t, d_t)]
 
@@ -287,13 +290,12 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
         return torch.sum(wt[:, None] * (c - tt) ** 2)
 
     total = None
+    fused = cfg.fused_grad(scene)
     with rf("mrt.replay"):
         geom = shade.pack_shade_geom(merged)
         for ot, dt, tt, wt, tp in zip(o_t, d_t, t_t, w_t, topo):
             args = (geom, ot, dt, tt, wt, tp)
-            if cfg.fused_shade_grad:
-                # the fused segment's residuals are its inputs: no
-                # checkpoint
+            if fused:
                 part = tile_loss(*args)
             else:
                 part = torch.utils.checkpoint.checkpoint(

@@ -22,8 +22,8 @@ reference layout:
 The pack is an ordinary differentiable function of the scene's tensors
 (no detach): built once per training pass, its gather backward carries
 the row cotangents back to ``vertex_pos``, ``vertex_normal`` and the
-material table once. :func:`resolve_hit` (the training replay) covers
-the triangle branch only.
+material table once. :func:`resolve_hit` (the training replay) resolves
+every kind and the texture override.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from myraytracer_tpu_torch.ops import intersect as isx
+from myraytracer_tpu_torch.ops import texture as tex
 from myraytracer_tpu_torch.utils import vecmath as vm
 
 # hit kinds
@@ -145,41 +146,157 @@ def pack_shade_geom(scene) -> ShadeGeom:
                      mat16=mat16.contiguous(), ana16=ana16)
 
 
-def resolve_hit(scene, o, d, kind, idx, geom: ShadeGeom) -> Hit:
+def ray_t_sphere(o, d, center, radius):
+    """Differentiable sphere-hit distance of a known hit (no miss mask).
+
+    The double ``where`` guards the root: rays that did not select this
+    sphere still evaluate the branch, and sqrt'(0) = inf would turn
+    their zero cotangents into NaN.
+    """
+    oc = o - center
+    b = 2.0 * vm.dot(oc, d)
+    a = vm.dot(d, d)
+    c = vm.dot(oc, oc) - radius * radius
+    disc = b * b - 4.0 * a * c
+    pos = disc > 1e-12
+    sq = vm.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    sq = torch.where(pos, sq, torch.zeros_like(sq))
+    inv2a = 0.5 / a
+    t0 = (-b - sq) * inv2a
+    t1 = (-b + sq) * inv2a
+    return torch.where(t0 > isx.EPS_HIT, t0, t1)
+
+
+def resolve_hit(scene, o, d, kind, idx, geom: ShadeGeom,
+                texture_filter: str = "nearest",
+                need_colors: bool = True) -> Hit:
     """Recompute the surface interaction of each ray's recorded hit.
 
-    The triangle branch of the reference's ``resolve_hit``: one row
-    gather from ``tri_pack``, the Cramer re-solve, the flat normal from
-    the vertices (PHONG meshes interpolate the corner normals,
-    unnormalised), the point re-projected onto the triangle plane and
-    the material from columns 32:48. Rays that hit no triangle get t 0,
-    a zero normal and mirror 0; every consumer gates on ``valid``.
+    The reference's ``resolve_hit``: every kind's branch runs for every
+    ray and ``kind`` selects. Spheres, planes and cylinders re-solve t
+    from the scene's own tensors (the cylinder's normal flipped toward
+    the viewer); triangles take one row gather from ``tri_pack``, the
+    Cramer re-solve, the flat normal from the vertices (PHONG meshes
+    interpolate the corner normals, unnormalised). Every point is
+    re-projected onto its surface in fp32. The material row comes from
+    ``tri_pack`` columns 32:48 in triangle-only scenes and from
+    ``mat16[mat_id]`` otherwise; a textured triangle's diffuse is the
+    texel of ``texture.sample_nearest`` or ``sample_bilinear``
+    (``texture_filter``). ``need_colors=False`` skips the colours:
+    diffuse, ambient, specular and shininess come back as zeros. Rays of
+    no kind get t 0, a zero normal and mirror 0; every consumer gates on
+    ``valid``.
     """
-    ti = torch.clamp(torch.clamp(idx, min=0), max=scene.n_tris - 1).long()
-    rows48 = geom.tri_pack[ti]                        # [R, 48] one gather
-    p0, p1, p2 = rows48[:, 0:3], rows48[:, 3:6], rows48[:, 6:9]
-    t_t, alpha, beta = isx.ray_triangle(o, d, p0, p1, p2)
-    gamma = 1.0 - alpha - beta
-    n_flat = vm.normalize(vm.cross(p1 - p0, p2 - p0))
-    n0, n1, n2 = rows48[:, 16:19], rows48[:, 19:22], rows48[:, 22:25]
-    n_phong = alpha[:, None] * n0 + beta[:, None] * n1 + gamma[:, None] * n2
-    is_phong = rows48[:, 25] > 0.5
-    n_t = torch.where(is_phong[:, None], n_phong, n_flat)
+    R = o.shape[0]
+    safe = torch.clamp(idx, min=0).long()
+    zero = o.new_zeros(R)
+    t = zero
+    normal = o.new_zeros((R, 3))
+    override = o.new_zeros((R, 3))
+    has_override = torch.zeros(R, dtype=torch.bool, device=o.device)
+    mat_id = torch.zeros(R, dtype=torch.int64, device=o.device)
 
-    is_t = kind == KIND_TRI
-    zero = torch.zeros_like(t_t)
-    t = torch.where(is_t, t_t, zero)
-    normal = torch.where(is_t[:, None], n_t, torch.zeros_like(n_t))
+    if scene.n_spheres:
+        si = torch.clamp(safe, max=scene.n_spheres - 1)
+        c = scene.sphere_center[si]
+        r = scene.sphere_radius[si]
+        t_s = ray_t_sphere(o, d, c, r)
+        n_s = vm.normalize(o + t_s[:, None] * d - c)
+        is_s = kind == KIND_SPHERE
+        t = torch.where(is_s, t_s, t)
+        normal = torch.where(is_s[:, None], n_s, normal)
+        mat_id = torch.where(is_s, scene.sphere_mat[si].long(), mat_id)
+
+    if scene.n_planes:
+        pi = torch.clamp(safe, max=scene.n_planes - 1)
+        n_p = scene.plane_normal[pi]
+        c_p = scene.plane_center[pi]
+        denom = vm.dot(n_p, d)
+        denom = torch.where(denom.abs() > isx.EPS_PARALLEL, denom,
+                            torch.ones_like(denom))
+        t_p = (vm.dot(n_p, c_p) - vm.dot(n_p, o)) / denom
+        is_p = kind == KIND_PLANE
+        t = torch.where(is_p, t_p, t)
+        normal = torch.where(is_p[:, None], n_p, normal)
+        mat_id = torch.where(is_p, scene.plane_mat[pi].long(), mat_id)
+
+    if scene.n_cylinders:
+        ci = torch.clamp(safe, max=scene.n_cylinders - 1)
+        cc, ca = scene.cyl_center[ci], scene.cyl_axis[ci]
+        cr, ch = scene.cyl_radius[ci], scene.cyl_height[ci]
+        t_c = isx.ray_cylinder(o, d, cc, ca, cr, ch)
+        t_c = torch.where(t_c < isx.INF, t_c, torch.zeros_like(t_c))
+        rel = o + t_c[:, None] * d - cc
+        n_c = vm.normalize(rel - vm.dot(rel, ca)[:, None] * ca)
+        # the outward normal flips toward the viewer inside the tube
+        n_c = torch.where(vm.dot(n_c, d)[:, None] > 0, -n_c, n_c)
+        is_c = kind == KIND_CYL
+        t = torch.where(is_c, t_c, t)
+        normal = torch.where(is_c[:, None], n_c, normal)
+        mat_id = torch.where(is_c, scene.cyl_mat[ci].long(), mat_id)
+
+    tri_only = bool(scene.n_tris) and geom.tri_pack.shape[1] == 48
+    if scene.n_tris:
+        ti = torch.clamp(safe, max=scene.n_tris - 1)
+        rows48 = geom.tri_pack[ti]                   # [R, 32 or 48]
+        p0, p1, p2 = rows48[:, 0:3], rows48[:, 3:6], rows48[:, 6:9]
+        t_t, alpha, beta = isx.ray_triangle(o, d, p0, p1, p2)
+        gamma = 1.0 - alpha - beta
+        n_flat = vm.normalize(vm.cross(p1 - p0, p2 - p0))
+        n0, n1, n2 = rows48[:, 16:19], rows48[:, 19:22], rows48[:, 22:25]
+        n_phong = (alpha[:, None] * n0 + beta[:, None] * n1
+                   + gamma[:, None] * n2)
+        is_phong = rows48[:, 25] > 0.5
+        n_t = torch.where(is_phong[:, None], n_phong, n_flat)
+        is_t = kind == KIND_TRI
+        t = torch.where(is_t, t_t, t)
+        normal = torch.where(is_t[:, None], n_t, normal)
+        if not tri_only:
+            # col 26: the material id as a float (exact below 2^24)
+            mat_id = torch.where(is_t, rows48[:, 26].detach().long(), mat_id)
+        if need_colors and scene.has_textures:
+            u = (alpha * rows48[:, 9] + beta * rows48[:, 10]
+                 + gamma * rows48[:, 11])
+            v = (alpha * rows48[:, 12] + beta * rows48[:, 13]
+                 + gamma * rows48[:, 14])
+            rec = rows48[:, 27:30].detach().to(torch.int32)
+            sampler = (tex.sample_bilinear if texture_filter == "bilinear"
+                       else tex.sample_nearest)
+            texel = sampler(scene.texels, rec, u, v)
+            textured = is_t & (rec[:, 0] > 0)
+            override = torch.where(textured[:, None], texel, override)
+            has_override = has_override | textured
+
     valid = kind != KIND_MISS
     point = o + t[:, None] * d
-    # fp32 re-projection onto the exact plane (the identity in real
+    # fp32 re-projection onto the exact surface (the identity in real
     # arithmetic): keeps near-tangent hits from self-shadowing
-    point = torch.where(
-        is_t[:, None],
-        point - vm.dot(n_flat, point - p2)[:, None] * n_flat, point)
-    mat = rows48[:, 32:48]
+    if scene.n_spheres:
+        point = torch.where(is_s[:, None],
+                            c + r[:, None] * vm.normalize(point - c), point)
+    if scene.n_planes:
+        point = torch.where(
+            is_p[:, None],
+            point - vm.dot(n_p, point - c_p)[:, None] * n_p, point)
+    if scene.n_cylinders:
+        foot = cc + vm.dot(point - cc, ca)[:, None] * ca
+        point = torch.where(
+            is_c[:, None], foot + cr[:, None] * vm.normalize(point - foot),
+            point)
+    if scene.n_tris:
+        point = torch.where(
+            is_t[:, None],
+            point - vm.dot(n_flat, point - p2)[:, None] * n_flat, point)
+    mat = rows48[:, 32:48] if tri_only else geom.mat16[mat_id]   # [R, 16]
+    if need_colors:
+        diffuse = torch.where(has_override[:, None], override, mat[:, 0:3])
+        ambient, specular = mat[:, 3:6], mat[:, 6:9]
+        shininess = mat[:, 9]
+    else:
+        diffuse = override
+        ambient = specular = o.new_zeros((R, 3))
+        shininess = zero
     return Hit(valid=valid, t=t, point=point, normal=normal,
-               diffuse=mat[:, 0:3], ambient=mat[:, 3:6],
-               specular=mat[:, 6:9],
+               diffuse=diffuse, ambient=ambient, specular=specular,
                mirror=torch.where(valid, mat[:, 10], zero),
-               shininess=mat[:, 9], shadowable=mat[:, 11])
+               shininess=shininess, shadowable=mat[:, 11])

@@ -1,26 +1,39 @@
 """Wavefront Whitted integrator over the fused kernel pipeline (torch).
 
-Counterpart of the fused branch of ``myraytracer_tpu/ops/tracer.py``.
-Every Whitted segment runs once over the whole flat ray batch:
+Counterpart of ``myraytracer_tpu/ops/tracer.py``. Every Whitted segment
+runs once over the whole flat ray batch:
 
   closest hit  the dense analytic tests (spheres, then planes, then
-               cylinders; torch ops), then triangles through the cluster
-               scan (K2 phase-1 + K1), merged in that order with strict <
+               cylinders; torch ops), then triangles by
+               ``TraceConfig.tri_method``, merged in that order with
+               strict <
   pre kernel   K3: per-kind hit resolve, atlas index, light-major
                shadow batch
-  any hit      the any-hit cluster scan (hull or K2 phase-1 + K1') OR-ed
-               with the dense analytic occlusion
+  any hit      the triangle method's occlusion query OR-ed with the
+               dense analytic occlusion
   phong kernel K4: lighting with the texel override, blend, bounce.
+
+The triangle methods: ``"cluster"`` (the default) is the cluster scan
+(K2 phase-1 + K1/K1'); ``"bvh"`` the threaded-BVH walk (K7,
+ops/traverse.py), the reference's default off the TPU; ``"brute"`` the
+all-triangle oracle (torch ops). K3 and K4 shade the hits of every
+method. The reference refuses its fused Pallas shading unless the method
+is "cluster" (its ``resolved_fused_shade``) only because that pipeline
+was built around the cluster megakernel; its own tests show the three
+methods' images equal within 1e-5 and the fused and XLA shading equal.
 
 :func:`trace` runs that chain. The training step splits it in two:
 :func:`trace_topology` runs the same chain without gradients and records
-per segment which triangle each ray hit and the shadow mask;
+per segment which primitive each ray hit and the shadow mask;
 :func:`trace_shade` replays the differentiable shading on that fixed
-topology, with no traversal, either through the fused K5/K6 segment
-(ops/shade_grad.py, the default) or as an autograd replay of
-``shade.resolve_hit`` + :func:`lighting_from_mask`. The training split
-covers untextured triangle-only scenes; the others raise
-NotImplementedError there (:func:`check_supported`).
+topology, with no traversal. It takes the fused K5/K6 segment
+(ops/shade_grad.py) exactly where the reference's
+``resolved_fused_shade_grad`` would: triangles, no analytic primitive,
+no texture, at least one light, and ``fused_shade_grad`` set
+(:meth:`TraceConfig.fused_grad`). Every other scene takes the autograd
+replay of ``shade.resolve_hit`` + :func:`lighting_from_mask`. This is a
+choice by scene content, the reference's rule, not a fallback: K5/K6
+cover what the reference's K5/K6 cover.
 
 A segment in which no ray is alive any more is skipped.
 """
@@ -36,6 +49,7 @@ from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import intersect as isx
 from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import shade_grad as sg
+from myraytracer_tpu_torch.ops import traverse as trv
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.utils import vecmath as vm
 
@@ -44,10 +58,28 @@ from myraytracer_tpu_torch.utils import vecmath as vm
 ANA_BUDGET = 1 << 24
 
 
+#: the triangle methods of TraceConfig.tri_method
+TRI_METHODS = ("cluster", "bvh", "brute")
+
+#: the texture fetches of TraceConfig.texture_filter
+TEXTURE_FILTERS = ("nearest", "bilinear")
+
+
 class TraceConfig(NamedTuple):
     """Options of the integrator: the reference's TraceConfig reduced to
     what the fused path reads."""
 
+    #: triangle intersection: "cluster" (the cluster scan, K2 + K1),
+    #: "bvh" (the threaded-BVH walk, K7) or "brute" (every triangle,
+    #: the oracle). The reference's "auto" is not taken: the port's
+    #: default stays "cluster", the method every recorded number was
+    #: measured on; whether a GPU default should be "bvh" is for the
+    #: card's numbers of both to decide (PERF.md).
+    tri_method: str = "cluster"
+    #: the texel fetch of the training replay: "nearest" or "bilinear"
+    #: (differentiable in the texels and the UVs). The forward shades
+    #: through K3/K4, which always take the nearest texel.
+    texture_filter: str = "nearest"
     #: run the plain PyTorch versions of the kernels, on any device
     #: (compares the kernels with them on the card)
     plain: bool = False
@@ -63,6 +95,24 @@ class TraceConfig(NamedTuple):
     #: hulls loose.
     phase1: Optional[str] = None
 
+    def validate(self) -> "TraceConfig":
+        """Raise ValueError for a method or filter the port does not take."""
+        if self.tri_method not in TRI_METHODS:
+            raise ValueError(f"tri_method must be one of {TRI_METHODS}, not "
+                             f"{self.tri_method!r}")
+        if self.texture_filter not in TEXTURE_FILTERS:
+            raise ValueError(f"texture_filter must be one of "
+                             f"{TEXTURE_FILTERS}, not {self.texture_filter!r}")
+        return self
+
+    def fused_grad(self, scene) -> bool:
+        """Does :func:`trace_shade` take the fused K5/K6 segment? The
+        reference's ``resolved_fused_shade_grad``: triangles, no analytic
+        primitive, no texture, a light, and ``fused_shade_grad``."""
+        return bool(self.fused_shade_grad and scene.n_tris
+                    and not shade.has_analytic(scene)
+                    and not scene.has_textures and scene.n_lights >= 1)
+
 
 class Bounce(NamedTuple):
     """Per-ray state carried from one Whitted segment to the next."""
@@ -76,29 +126,25 @@ class Bounce(NamedTuple):
 class TracePack(NamedTuple):
     """Scene tables the segments read, packed once per render."""
 
-    cl_const: Optional[torch.Tensor]  # [K, 16, M]; None without triangles
+    cl_const: Optional[torch.Tensor]  # [K, 16, M] for "cluster", else None
+    tri_flat: Optional[torch.Tensor]  # [T, 16] for "bvh"/"brute", else None
     geom: shade.ShadeGeom             # tri_pack, mat16, ana16
     env: torch.Tensor                 # [6] ambience, background
 
 
-def check_supported(scene) -> None:
-    """Raise NotImplementedError for scenes the training split
-    (:func:`trace_topology`, :func:`trace_shade`) cannot take yet: its
-    replay resolves untextured triangles only."""
-    if shade.has_analytic(scene):
-        raise NotImplementedError(
-            "training on spheres, planes and cylinders is not ported yet")
-    if scene.has_textures:
-        raise NotImplementedError(
-            "training on textured meshes is not ported yet")
-    if not scene.n_tris:
-        raise NotImplementedError("training needs a triangle mesh")
-
-
-def pack_trace(scene) -> TracePack:
-    """Pack the tables :func:`segment_step` reads (once per render)."""
+def pack_trace(scene, cfg: TraceConfig = TraceConfig()) -> TracePack:
+    """Pack the tables :func:`segment_step` reads (once per render): the
+    cluster constants for "cluster", the corner rows of the current
+    vertices for "bvh" and "brute"."""
+    method = cfg.validate().tri_method
+    cl_const = tri_flat = None
+    if scene.n_tris:
+        if method == "cluster":
+            cl_const = cc.pack_cluster_constants(scene)
+        else:
+            tri_flat = trv.pack_tri_vertices(scene).detach().contiguous()
     return TracePack(
-        cl_const=cc.pack_cluster_constants(scene) if scene.n_tris else None,
+        cl_const=cl_const, tri_flat=tri_flat,
         geom=shade.pack_shade_geom(scene),
         env=torch.cat([scene.ambience, scene.background]).contiguous())
 
@@ -194,16 +240,14 @@ def closest_hit(scene, pack: TracePack, o, d, live,
                 cfg: TraceConfig = TraceConfig()):
     """Closest hit of each ray over every primitive kind.
 
-    Analytic kinds first, triangles (the cluster scan) last, merged with
-    strict <. Returns (kind [R] i32, KIND_MISS for dead rays; pidx [R]
-    i32 the per-kind index; aidx [R] i32 the ana16 row of the closest
-    analytic primitive; t [R], INF on a miss).
+    Analytic kinds first, triangles (``cfg.tri_method``) last, merged
+    with strict <. Returns (kind [R] i32, KIND_MISS for dead rays; pidx
+    [R] i32 the per-kind index; aidx [R] i32 the ana16 row of the
+    closest analytic primitive; t [R], INF on a miss).
     """
     kind, pidx, aidx, t = _closest_analytic(scene, o, d)
     if scene.n_tris:
-        tri = cc.intersect_clusters(scene, o, d, active=live,
-                                    cl_const=pack.cl_const, plain=cfg.plain,
-                                    phase1=cfg.phase1)
+        tri = _tri_query(scene, pack, o, d, live, cfg)
         better = tri.t < t
         kind = torch.where(better, shade.KIND_TRI, kind)
         pidx = torch.where(better, torch.clamp(tri.idx, min=0), pidx)
@@ -212,19 +256,44 @@ def closest_hit(scene, pack: TracePack, o, d, live,
     return kind, pidx, aidx, t
 
 
+def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
+               t_max=None, any_hit: bool = False) -> trv.TriHit:
+    """The one triangle query of a segment, by ``cfg.tri_method``.
+
+    "brute" has no any-hit mode and no mask: it answers occlusion as the
+    reference's ``_closest_tris`` does, with a closest query below
+    ``t_max`` (idx >= 0 means occluded), masked here with ``active``.
+    """
+    method = cfg.tri_method
+    if method == "cluster":
+        return cc.intersect_clusters(scene, o, d, t_max=t_max,
+                                     any_hit=any_hit, active=active,
+                                     cl_const=pack.cl_const, plain=cfg.plain,
+                                     phase1=cfg.phase1)
+    if method == "bvh":
+        return trv.traverse_bvh(scene, o, d, t_max=t_max, any_hit=any_hit,
+                                active=active, tri_flat=pack.tri_flat,
+                                plain=cfg.plain)
+    hit = trv.intersect_tris_brute(scene, o, d, t_max=t_max,
+                                   tri_flat=pack.tri_flat)
+    if active is None:
+        return hit
+    return trv.TriHit(torch.where(active, hit.idx, -1),
+                      torch.where(active, hit.t, INF))
+
+
 def shadow_mask(scene, pack: TracePack, so, sd, st, sact,
                 cfg: TraceConfig = TraceConfig()) -> torch.Tensor:
     """Occlusion of K3's light-major shadow batch -> [L*R] i32.
 
-    The any-hit cluster scan OR-ed with the dense analytic occlusion,
-    both for the active shadow rays only.
+    The triangle method's occlusion query OR-ed with the dense analytic
+    occlusion, both for the active shadow rays only.
     """
     cast = sact > 0
     shadow = torch.zeros_like(cast)
     if scene.n_tris and cast.numel():
-        occ = cc.intersect_clusters(scene, so, sd, t_max=st, any_hit=True,
-                                    active=cast, cl_const=pack.cl_const,
-                                    plain=cfg.plain, phase1=cfg.phase1)
+        occ = _tri_query(scene, pack, so, sd, cast, cfg, t_max=st,
+                         any_hit=True)
         shadow = occ.idx >= 0
     if shade.has_analytic(scene):
         shadow = shadow | (cast & _analytic_occlusion(
@@ -278,7 +347,7 @@ def trace(scene, o: torch.Tensor, d: torch.Tensor,
     tiles of one render.
     """
     if pack is None:
-        pack = pack_trace(scene)
+        pack = pack_trace(scene, cfg)
     R = o.shape[0]
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=o.device),
                    color=torch.zeros((R, 3), device=o.device))
@@ -294,12 +363,11 @@ def trace_topology(scene, o: torch.Tensor, d: torch.Tensor,
                    cfg: TraceConfig = TraceConfig(),
                    pack: Optional[TracePack] = None) -> TraceTopo:
     """Gradient-free topology pass: the segments of :func:`trace`,
-    recording per segment which triangle each ray hit, whether it was a
+    recording per segment which primitive each ray hit, whether it was a
     live hit or a live miss, and the shadow mask per light. Segments after
     every ray died record no hits (kind KIND_MISS, idx 0, all False)."""
-    check_supported(scene)
     if pack is None:
-        pack = pack_trace(scene)
+        pack = pack_trace(scene, cfg)
     R, L = o.shape[0], scene.n_lights
     dev = o.device
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=dev),
@@ -345,11 +413,12 @@ def lighting_from_mask(scene, hit: shade.Hit, view: torch.Tensor,
     return color + contrib.sum(dim=0)
 
 
-def _replay_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec
-                    ) -> Bounce:
+def _replay_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
+                    texture_filter: str) -> Bounce:
     """One segment of the autograd replay (the reference's default)."""
     kind, idx, h, miss, is_shadow = rec
-    hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx, geom)
+    hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx, geom,
+                            texture_filter)
     local = lighting_from_mask(scene, hit, -carry.d, is_shadow)
     w = carry.weight[:, None]
     add = (torch.where(h[:, None], w * (1.0 - hit.mirror[:, None]) * local,
@@ -387,9 +456,10 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     occlusion query. ``trace_shade(scene, o, d, trace_topology(scene, o,
     d))`` equals ``trace(scene, o, d)``. ``geom`` (the packed rows) can be
     shared by the tiles of one pass, so that its gather backward runs
-    once. Segments with no live ray are skipped.
+    once. Segments with no live ray are skipped. The fused K5/K6 segment
+    or the autograd replay by :meth:`TraceConfig.fused_grad`.
     """
-    check_supported(scene)
+    fused = cfg.validate().fused_grad(scene)
     if geom is None:
         geom = shade.pack_shade_geom(scene)
     R = o.shape[0]
@@ -400,8 +470,9 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
                topo.shadow[s])
         if not bool((rec[2] | rec[3]).any()):
             continue
-        if cfg.fused_shade_grad:
+        if fused:
             carry = _fused_segment(scene, geom, carry, rec, cfg.plain)
         else:
-            carry = _replay_segment(scene, geom, carry, rec)
+            carry = _replay_segment(scene, geom, carry, rec,
+                                    cfg.texture_filter)
     return carry.color

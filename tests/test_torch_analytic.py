@@ -15,6 +15,7 @@ render >= 99.5% of pixels within 1e-4 (a flipped fp tie changes a
 pixel's hit, not the image).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -315,6 +316,72 @@ def test_texel_index_matches_sample_nearest():
     same = (fetched[tex] == got[tex]).all(axis=1)
     assert same.mean() >= 0.99
     assert ((texid.numpy() >= 0) == tex).all()
+
+
+@pytest.mark.parametrize("name,filt", [("mixed", "nearest"),
+                                       ("mixed_mirror_nocyl", "nearest"),
+                                       ("triless", "nearest"),
+                                       ("textured", "nearest"),
+                                       ("textured", "bilinear")])
+def test_resolve_hit_matches_reference(name, filt):
+    """resolve_hit's every branch on the first segment's recorded hits:
+    t, point, normal, diffuse, mirror and shadowable within 1e-5."""
+    s, ref, port, cam = _build(name)
+    o, d = prender.primary_rays_blocked(cam, "cpu")
+    topo = tr.trace_topology(port, o, d)
+    kind, idx = topo.kind[0], topo.idx[0]
+    got = shade.resolve_hit(port, o, d, kind, idx,
+                            shade.pack_shade_geom(port), filt)
+    want = rshade.resolve_hit(ref, jnp.asarray(o.numpy()),
+                              jnp.asarray(d.numpy()),
+                              jnp.asarray(kind.numpy()),
+                              jnp.asarray(idx.numpy()), filt)
+    for f in ("t", "point", "normal", "diffuse", "mirror", "shadowable"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-5,
+                                   atol=1e-5, err_msg=f)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    kinds_hit = set(kind[got.valid].tolist())
+    want_kinds = {"mixed": {1, 2, 3, 4}, "mixed_mirror_nocyl": {1, 2, 3},
+                  "triless": {1, 2, 4}, "textured": {3}}[name]
+    assert kinds_hit == want_kinds
+    # need_colors=False keeps the geometry and drops the colours
+    bare = shade.resolve_hit(port, o, d, kind, idx,
+                             shade.pack_shade_geom(port), filt,
+                             need_colors=False)
+    assert torch.equal(bare.point, got.point)
+    assert not bare.diffuse.any() and not bare.specular.any()
+
+
+def test_sample_bilinear_matches_reference():
+    """Values and gradients (texels, u, v) against jax.grad."""
+    rng = np.random.default_rng(8)
+    texels = rng.uniform(size=(13 * 9 + 6 * 17, 3)).astype(np.float32)
+    R = 400
+    rec = np.where(rng.uniform(size=(R, 1)) < 0.5, [[13, 9, 0]],
+                   [[6, 17, 13 * 9]]).astype(np.int32)
+    u = rng.uniform(-0.1, 1.1, R).astype(np.float32)
+    v = rng.uniform(-0.1, 1.1, R).astype(np.float32)
+    cot = rng.normal(size=(R, 3)).astype(np.float32)
+
+    def r_loss(tx, uu, vv):
+        return jnp.sum(rtex.sample_bilinear(tx, jnp.asarray(rec), uu, vv)
+                       * jnp.asarray(cot))
+
+    want = np.asarray(rtex.sample_bilinear(
+        jnp.asarray(texels), jnp.asarray(rec), jnp.asarray(u),
+        jnp.asarray(v)))
+    r_grads = jax.grad(r_loss, argnums=(0, 1, 2))(
+        jnp.asarray(texels), jnp.asarray(u), jnp.asarray(v))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (texels, u, v)]
+    got = texture.sample_bilinear(leaves[0], torch.from_numpy(rec), *leaves[1:])
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-7)
+    grads = torch.autograd.grad((got * torch.from_numpy(cot)).sum(), leaves)
+    for nm, a, b in zip(("texels", "u", "v"), grads, r_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=nm)
+    assert np.abs(np.asarray(r_grads[1])).max() > 0
 
 
 def test_atlas_limit_raises():

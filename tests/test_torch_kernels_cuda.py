@@ -15,7 +15,8 @@ rays, t within rtol 5e-5 where the ids agree (the reference's bars). The
 shade-segment backward (K6) sums its light and env cotangents with
 atomics, and index_add_ sums the row cotangents per triangle, both in a
 run-dependent order: cotangents within 3e-5 * max|plain| (the
-reference's bar for its hand-derived VJP).
+reference's bar for its hand-derived VJP). The BVH walk (K7, built
+without contraction) equals its plain version: ids and t to the bit.
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import shade, tracer as tr
 from myraytracer_tpu_torch.ops import shade_grad as sg
+from myraytracer_tpu_torch.ops import traverse as trv
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.ops.render import (primary_rays_blocked, render,
                                                render_aa)
@@ -375,3 +377,121 @@ def test_shade_segment_wrappers_reject_bad_inputs(cuda):
         sg.segment_fwd(*bad_lit)
     with pytest.raises(ValueError, match="g_w2"):
         sg.segment_bwd(*args, *cots[:3], cots[3].cpu())
+
+
+def _walk_queries(data, o, d, dev):
+    """(name, kwargs) of the walk's queries: closest, any-hit with t_max
+    just below the closest t and an active mask, both on [R, 3] rays."""
+    closest = trv.traverse_bvh_plain(data, o, d)
+    t_max = torch.where(closest.idx >= 0, closest.t * 0.999,
+                        torch.full_like(closest.t, 1e30))
+    t_max[::3] = 25.0
+    active = torch.rand(o.shape[0], device=dev) > 0.2
+    return [("closest", {}), ("active", dict(active=active)),
+            ("anyhit", dict(t_max=t_max, any_hit=True, active=active))]
+
+
+def _check_walk(data, o, d, dev, name, kw):
+    counter = "bvh_walk_anyhit" if kw.get("any_hit") else "bvh_walk_closest"
+    before = LAUNCHES[counter]
+    got = trv.traverse_bvh(data, o, d, **kw)
+    assert LAUNCHES[counter] == before + 1, name
+    want = trv.traverse_bvh_plain(data, o, d, **kw)
+    assert torch.equal(got.idx, want.idx), name
+    assert torch.equal(got.t, want.t), name
+    return got
+
+
+def test_bvh_walk_kernel_matches_plain(cuda):
+    data, rng = _random_scene(4, 900, cuda)
+    o, d = _rays(rng, 5003, cuda)                 # not a multiple of 128
+    d[:7, 1] = -0.0                               # 1/d = -inf
+    hits = {}
+    for name, kw in _walk_queries(data, o, d, cuda):
+        hits[name] = _check_walk(data, o, d, cuda, name, kw)
+    assert float((hits["closest"].idx >= 0).float().mean()) > 0.1
+    # the shadow batch's [R, 4] rows take the same path
+    o4, d4 = (torch.nn.functional.pad(x, (0, 1)) for x in (o, d))
+    got = trv.traverse_bvh(data, o4, d4)
+    assert torch.equal(got.idx, hits["closest"].idx)
+
+
+def test_bvh_walk_kernel_matches_plain_on_office(cuda):
+    """Primary rays and the shadow batch K3 emits for their hits."""
+    s = scene_08_office(tess=3, resolution=(160, 90))
+    data = s.build(device=cuda)
+    pack = tr.pack_trace(data, tr.TraceConfig(tri_method="bvh"))
+    o, d = primary_rays_blocked(s.camera, cuda)
+    live = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+    hit = _check_walk(data, o, d, cuda, "primary", dict(tri_flat=pack.tri_flat))
+    kind, pidx, aidx, t = tr.closest_hit(data, pack, o, d, live,
+                                         tr.TraceConfig(tri_method="bvh"))
+    assert torch.equal(torch.where(kind == shade.KIND_TRI, pidx, -1),
+                       hit.idx)
+    # the cluster scan numbers the triangles the same way
+    cl = cc.intersect_clusters(data, o, d)
+    assert float((cl.idx == hit.idx).float().mean()) >= 0.995
+    g = pack.geom
+    pre = cs.shade_pre(o, d, t.contiguous(), kind, live.to(torch.int32),
+                       torch.where(kind == shade.KIND_TRI, pidx,
+                                   0).contiguous(),
+                       torch.zeros_like(pidx), g.tri_pack, g.ana16, g.mat16,
+                       data.light_pos, data.texels.shape[0])
+    so, sd, st, sact = pre[4:]
+    occ = _check_walk(data, so, sd, cuda, "shadow",
+                      dict(t_max=st, any_hit=True, active=sact > 0,
+                           tri_flat=pack.tri_flat))
+    assert bool((occ.idx >= 0).any())
+
+
+@pytest.mark.parametrize("entry", ["render", "render_aa", "loss_grad"])
+def test_bvh_path_launches_the_walk_and_matches_cluster(cuda, entry):
+    s = kinds.mixed_scene(mirror=0.3, w=160, h=90)
+    data = s.build(device=cuda)
+    cfg = tr.TraceConfig(tri_method="bvh")
+
+    def run(c):
+        if entry == "render":
+            return render(data, s.camera, cfg=c)
+        if entry == "render_aa":
+            return render_aa(data, s.camera, budget_frac=0.3, cfg=c)
+        from myraytracer_tpu_torch.ops.render import render_loss_grad_image
+        target = torch.full((s.camera.height, s.camera.width, 3), 0.3,
+                            device=cuda)
+        return render_loss_grad_image(data, s.camera, target, cfg=c)
+
+    before = dict(LAUNCHES)
+    got = run(cfg)
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert launched["bvh_walk_closest"] > 0 and launched["bvh_walk_anyhit"] > 0
+    for k in ("phase1_exact", "cluster_scan_closest", "cluster_scan_anyhit"):
+        assert launched[k] == 0, k
+    want = run(tr.TraceConfig())
+    if entry == "loss_grad":
+        (loss, grads), (loss_c, grads_c) = got, want
+        torch.testing.assert_close(loss, loss_c, rtol=1e-5, atol=0)
+        for k in grads:
+            _close_scaled(grads[k], grads_c[k], k, rel=5e-4)
+    else:
+        diff = (got - want).abs().amax(dim=-1)
+        assert float((diff <= 1e-4).float().mean()) >= 0.995
+
+
+def test_bvh_walk_wrapper_rejects_bad_inputs(cuda):
+    data, rng = _random_scene(5, 60, cuda)
+    o, d = _rays(rng, 300, cuda)
+    R = o.shape[0]
+    t0 = torch.full((R,), INF, device=cuda)
+    act = torch.ones(R, dtype=torch.int32, device=cuda)
+    nodes, links = data.bvh_nodes_packed, data.bvh_links_packed
+    tri = trv.pack_tri_vertices(data).contiguous()
+    with pytest.raises(ValueError, match="act"):
+        trv.bvh_walk(o, d, t0, act.bool(), nodes, links, tri, False)
+    with pytest.raises(ValueError, match="links"):
+        trv.bvh_walk(o, d, t0, act, nodes, links[:-2].contiguous(), tri,
+                     False)
+    with pytest.raises(ValueError, match="tri_flat"):
+        trv.bvh_walk(o, d, t0, act, nodes, links, tri[:, :9].contiguous(),
+                     False)
+    with pytest.raises(ValueError, match="nodes"):
+        trv.bvh_walk(o, d, t0, act, nodes.cpu(), links, tri, False)

@@ -1,4 +1,5 @@
-"""The port's forward render vs the reference's, end to end.
+"""The port's forward render vs the reference's, end to end, and the
+training step on every scene kind.
 
 The reference renders through its fused path (cluster scan + fused
 shading kernels, interpret mode on the CPU); the port renders through the
@@ -7,22 +8,34 @@ scene. Bar: >= 99.5% of pixels within 1e-4 and a mean abs diff <= 1e-4
 (a flipped fp tie changes the hit triangle of a pixel, not the image).
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from myraytracer_tpu.models.material import Material as RMaterial
+from myraytracer_tpu.models.mesh import (FLAT as RFLAT, PHONG as RPHONG,
+                                         TriangleMesh as RMesh)
+from myraytracer_tpu.models.scene import Scene as RScene
+from myraytracer_tpu.ops import intersect as risx
 from myraytracer_tpu.ops import tracer as rtr
-from myraytracer_tpu.ops.render import render as rrender
+from myraytracer_tpu.ops.render import (
+    render as rrender, render_loss_grad_image as r_loss_grad_image)
+from myraytracer_tpu.parallel.shard_render import (
+    split_params as r_split_params)
+from myraytracer_tpu.scenes.shapes import uv_sphere as r_uv_sphere
 
-from myraytracer_tpu_torch.models.material import Material
-from myraytracer_tpu_torch.models.mesh import TriangleMesh
 from myraytracer_tpu_torch.ops import render as prender
 from myraytracer_tpu_torch.ops import tracer as tr
-from myraytracer_tpu_torch.scenes.shapes import box
+from myraytracer_tpu_torch.scenes import kinds
 
 from test_torch_scene import mesh_scene, office, to_port
 
 REF_CFG = rtr.TraceConfig(tri_method="cluster", use_pallas_cluster=True)
+#: the reference's authoring API, in the order scenes/kinds.py takes it
+REF_API = (RScene, RMaterial, RMesh, RPHONG, RFLAT, r_uv_sphere)
+GRAD_REL = 5e-4
 
 # one intra-op thread per process (several pytest workers share the host)
 torch.set_num_threads(1)
@@ -74,29 +87,150 @@ def test_fit_tile_matches_reference_rule():
         assert prender._fit_tile(R, tile, 1024) == r_fit_tile(R, tile, 1024)
 
 
-@pytest.mark.parametrize("what", ["sphere", "plane", "cylinder", "texture"])
-def test_unported_scene_kinds_raise(what):
-    """The forward renders every kind; the training step still takes
-    untextured triangle meshes only."""
-    s = mesh_scene("port")
-    mat = Material()
+def _kind_scene(what, pkg):
+    """The mesh scene plus one visible sphere, plane or cylinder; the
+    textured scene; or the mixed scene with mirrors, in either package."""
+    api = kinds.PORT_API if pkg == "port" else REF_API
+    if what.startswith("texture"):
+        return kinds.textured_scene(w=32, h=24, api=api)
+    if what == "mixed_mirror":
+        return kinds.mixed_scene(mirror=0.35, w=32, h=24, api=api)
+    if what == "triless":
+        return kinds.mixed_scene(tris=False, w=32, h=24, api=api)
+    s = mesh_scene(pkg)
+    mat = api[1](diffuse=(0.3, 0.5, 0.6), specular=(0.4, 0.4, 0.4),
+                 shininess=15)
     if what == "sphere":
-        s.add_sphere((0, 0, 0), 0.5, mat)
+        s.add_sphere((-1.3, 0.4, 0.6), 0.45, mat)
     elif what == "plane":
         s.add_plane((0, -1, 0), (0, 1, 0), mat)
-    elif what == "cylinder":
-        s.add_cylinder((0, 0, 0), (0, 1, 0), 0.3, 1.0, mat)
     else:
-        v, f = box((1, 1, 1), (0, 0, -2))
-        s.add_mesh(TriangleMesh(
-            v, f, material=mat, uv_indices=f, u_coords=np.zeros(8),
-            v_coords=np.zeros(8), texture=np.ones((2, 2, 3), np.float32)))
-    data = s.build(device="cpu")
-    img = prender.render(data, s.camera)
+        s.add_cylinder((-1.3, -0.1, 0.5), (0.1, 1, 0), 0.3, 1.2, mat)
+    return s
+
+
+#: (scene, texture_filter, the port's tri_method) of each training case
+KIND_CASES = {"sphere": ("sphere", "nearest", "cluster"),
+              "plane": ("plane", "nearest", "cluster"),
+              "cylinder": ("cylinder", "nearest", "cluster"),
+              "texture": ("texture", "nearest", "cluster"),
+              "texture_bilinear": ("texture", "bilinear", "bvh"),
+              "mixed_mirror": ("mixed_mirror", "nearest", "bvh"),
+              "triless": ("triless", "nearest", "cluster")}
+
+
+def _ref_cylinder_guarded(o, d, center, axis, radius, height):
+    """The reference's ray_cylinder with its root behind a double where:
+    the same values, and a finite gradient where disc <= 0."""
+    dot = risx.dot_last
+    oc = o - center
+    d_par, oc_par = dot(d, axis), dot(oc, axis)
+    a_v = d - d_par[..., None] * axis
+    b_v = oc - oc_par[..., None] * axis
+    a, b = dot(a_v, a_v), 2.0 * dot(a_v, b_v)
+    c = dot(b_v, b_v) - radius * radius
+    degenerate = a < 1e-12
+    a_safe = jnp.where(degenerate, 1.0, a)
+    disc = b * b - 4.0 * a_safe * c
+    pos = disc > 0.0
+    sq = jnp.where(pos, jnp.sqrt(jnp.where(pos, disc, 1.0)), 0.0)
+    inv2a = 0.5 / a_safe
+    t0, t1 = (-b - sq) * inv2a, (-b + sq) * inv2a
+    ok0 = (t0 > risx.EPS_HIT) & (jnp.abs(oc_par + t0 * d_par) <= height * 0.5)
+    ok1 = (t1 > risx.EPS_HIT) & (jnp.abs(oc_par + t1 * d_par) <= height * 0.5)
+    t = jnp.where(ok0, t0, jnp.where(ok1, t1, risx.INF))
+    valid = (~degenerate) & (disc >= 0.0) & (ok0 | ok1)
+    return jnp.where(valid, t, risx.INF)
+
+
+@pytest.mark.parametrize("what", list(KIND_CASES))
+def test_unported_scene_kinds_raise(what, monkeypatch):
+    """The scene kinds the training step once refused (spheres, planes,
+    cylinders, textures with either filter, analytic mirrors, scenes
+    without triangles) train
+    through the autograd replay and match the reference's training step:
+    loss within rtol 1e-5, every gradient within 5e-4 * max|a|, the keys
+    of split_params. The reference runs its "brute" method, the cheapest
+    on the CPU. The target is seeded noise, far from the render: a target
+    close to it makes (c - target) tiny, and the gradient then carries
+    the ~4e-6 by which XLA's fused CPU shading differs from the same
+    expressions run op by op.
+
+    The reference's cylinder gradients are NaN: its resolve_hit runs the
+    cylinder test for every ray, and sqrt(max(disc, 0)) turns the zero
+    cotangent of a ray with disc < 0 into NaN. The port guards the root;
+    on scenes with a cylinder it is held against the reference with the
+    same guard (the same values, patched in here)."""
+    kind, filt, method = KIND_CASES[what]
+    rs = _kind_scene(kind, "ref")
+    ref = rs.build()
+    port = to_port(ref)
+    cam = _kind_scene(kind, "port").camera
+    cfg = tr.TraceConfig(tri_method=method, texture_filter=filt)
+    assert not cfg.fused_grad(port)
+    img = prender.render(prender.restore_mirror_chain(port), cam, cfg=cfg)
     assert bool(torch.isfinite(img).all())
-    target = torch.zeros_like(img)
-    with pytest.raises(NotImplementedError):
-        prender.render_loss_grad_image(data, s.camera, target)
+    rng = np.random.default_rng(len(what))
+    target = rng.uniform(0.0, 1.0, tuple(img.shape)).astype(np.float32)
+    r_cfg = rtr.TraceConfig(tri_method="brute", texture_filter=filt)
+    if what == "cylinder":
+        _, r_nan = r_loss_grad_image(ref, rs.camera, jnp.asarray(target),
+                                     cfg=r_cfg)
+        assert not np.isfinite(np.asarray(r_nan["cyl_axis"])).all()
+    if ref.n_cylinders:
+        # the reference's compiled programs are cached by shape: trace
+        # anew with the guard, and drop the guarded programs afterwards
+        jax.clear_caches()
+        monkeypatch.setattr(risx, "ray_cylinder", _ref_cylinder_guarded)
+    try:
+        r_loss, r_grads = r_loss_grad_image(
+            ref, rs.camera, jnp.asarray(target), cfg=r_cfg)
+    finally:
+        if ref.n_cylinders:
+            jax.clear_caches()
+    loss, grads = prender.render_loss_grad_image(
+        port, cam, torch.from_numpy(target), cfg=cfg)
+    np.testing.assert_allclose(float(loss), float(r_loss), rtol=1e-5)
+    assert list(grads) == list(r_split_params(ref)) and len(grads) == 23
+    for k, want in r_grads.items():
+        want = np.asarray(want)
+        got = grads[k].numpy()
+        assert got.shape == want.shape and np.isfinite(got).all(), k
+        tol = GRAD_REL * max(float(np.abs(want).max()) if want.size else 0.0,
+                             1e-3)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=k)
+    # the gradient reaches the new kind's own parameters
+    reach = {"sphere": "sphere_center", "plane": "plane_normal",
+             "cylinder": "cyl_center", "texture": "texels",
+             "mixed_mirror": "mat_mirror", "triless": "sphere_radius"}[kind]
+    assert np.abs(np.asarray(r_grads[reach])).max() > 0, reach
+    if filt == "bilinear":
+        assert np.abs(np.asarray(r_grads["uv_u"])).max() > 0
+
+
+def test_trace_shade_picks_the_segment_by_scene_content(monkeypatch):
+    """The fused K5/K6 segment on an untextured triangle-only scene with a
+    light (the reference's resolved_fused_shade_grad), the autograd
+    replay on a scene with a sphere, whatever fused_shade_grad says."""
+    calls = []
+    for name in ("_fused_segment", "_replay_segment"):
+        fn = getattr(tr, name)
+        monkeypatch.setattr(tr, name, lambda *a, _f=fn, _n=name: (
+            calls.append(_n), _f(*a))[1])
+    office_s = office("port", tess=2, w=32, h=32)
+    sphere_s = _kind_scene("sphere", "port")
+    for s in (office_s, sphere_s):
+        data = s.build(device="cpu")
+        o, d = prender.primary_rays_blocked(s.camera, "cpu")
+        topo = tr.trace_topology(data, o, d)
+        calls.clear()
+        tr.trace_shade(data, o, d, topo)
+        want = "_fused_segment" if s is office_s else "_replay_segment"
+        assert calls and set(calls) == {want}, calls
+    office_d = office_s.build(device="cpu")
+    assert tr.TraceConfig().fused_grad(office_d)
+    assert not tr.TraceConfig(fused_shade_grad=False).fused_grad(office_d)
+    assert not tr.TraceConfig().fused_grad(sphere_s.build(device="cpu"))
 
 
 def test_plain_config_runs_the_same_path_on_cpu():

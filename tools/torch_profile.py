@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's office render or training step on one GPU.
 
-    python3 tools/torch_profile.py [--fwd-bwd | --scene NAME] [--trace out.json]
+    python3 tools/torch_profile.py [--fwd-bwd | --scene NAME]
+        [--tri-method {cluster,bvh,brute}] [--trace out.json]
 
 Runs office (tess 10, 1920x1080) once to build and warm up, then five
 times under torch.profiler, and prints: the wall time per run (the
@@ -11,8 +12,9 @@ first. By default the run is the forward render; ``--fwd-bwd`` profiles
 the training step ``render_loss_grad_image`` instead (loss against a
 target image and all 23 parameter gradients); ``--scene NAME`` profiles
 ``render_aa`` of that golden scene (e.g. o_04_molecule) at its golden
-resolution and budget. ``--trace`` also writes a Chrome trace. Needs a
-CUDA device.
+resolution and budget. ``--tri-method`` picks the triangle method
+(``TraceConfig.tri_method``; default "cluster", the scan; "bvh" the walk
+K7). ``--trace`` also writes a Chrome trace. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -61,6 +63,9 @@ def main() -> int:
                     help="profile render_loss_grad_image, not render")
     ap.add_argument("--scene", default=None,
                     help="profile render_aa of this golden scene instead")
+    ap.add_argument("--tri-method", default="cluster",
+                    choices=("cluster", "bvh", "brute"),
+                    help="the triangle method (TraceConfig.tri_method)")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
     reps, tess, width, height = 5, 10, 1920, 1080
@@ -74,6 +79,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from myraytracer_tpu_torch.ops.render import (render, render_aa,
                                                    render_loss_grad_image)
+    from myraytracer_tpu_torch.ops.tracer import TraceConfig
     from myraytracer_tpu_torch.scenes.golden import (GOLDEN_SCENES,
                                                      scene_08_office)
 
@@ -87,17 +93,18 @@ def main() -> int:
     else:
         scene = scene_08_office(tess=tess, resolution=(width, height))
     data = scene.build(device="cuda:0")
+    cfg = TraceConfig(tri_method=args.tri_method)
     if args.scene:
         def step():
-            return render_aa(data, scene.camera, budget_frac=budget)
+            return render_aa(data, scene.camera, budget_frac=budget, cfg=cfg)
     elif args.fwd_bwd:
-        target = 0.9 * render(data, scene.camera) + 0.02
+        target = 0.9 * render(data, scene.camera, cfg=cfg) + 0.02
 
         def step():
-            return render_loss_grad_image(data, scene.camera, target)
+            return render_loss_grad_image(data, scene.camera, target, cfg=cfg)
     else:
         def step():
-            return render(data, scene.camera)
+            return render(data, scene.camera, cfg=cfg)
     step()
     torch.cuda.synchronize()
 
@@ -123,7 +130,7 @@ def main() -> int:
     where = args.scene or f"office tess {tess}"
     print(f"{gpu}; {where} {width}x{height}, {data.n_tris} triangles, "
           f"{data.n_spheres + data.n_planes + data.n_cylinders} analytic "
-          f"primitives; profiled: {what}")
+          f"primitives; tri_method {args.tri_method}; profiled: {what}")
     print(f"wall {wall * 1e3:.3f} ms/{what} (profiled), device busy "
           f"{busy:.3f} ms/{what} ({100 * busy / (wall * 1e3):.1f}% of the "
           f"window), of which the port's CUDA kernels {own:.3f} ms")
