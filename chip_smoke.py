@@ -11,7 +11,12 @@ nvcc. Phases:
   3. build the office scene (tess 10, 18,664 triangles) on the card;
   4. every kernel against its plain PyTorch version, on the inputs of the
      office 1920x1080 frame's first Whitted segment: errors, id agreement,
-     and both times from CUDA events;
+     both times from CUDA events, and registers and shared memory per
+     block (ptxas's -v report; K2's and K1's dynamic shared memory at
+     these shapes); then K2, K1 and K1' against their plain versions on
+     the cluster scan's edge batches (scenes/kinds.cluster_edge_rays:
+     axis-parallel rays, origins on box faces and inside boxes, finite
+     t0, inactive subgroups, clusters of one and of M triangles);
   5. office at 480x270 through the kernels and through the plain versions;
   6. office at 1920x1080 through the kernels, warm, three times: launch
      counts of that run, median seconds, rays/s, image checks;
@@ -64,7 +69,11 @@ count what this run's data needs: a gathered table only the distinct
 rows its indices select, the scans the slab tests, visits and real
 triangles (not padded slots) that the plain scan counts on these inputs,
 and the walk the distinct node, link and corner rows and the node steps
-and slot solves that the plain walk counts.
+and slot solves that the plain walk counts. K2's bound counts every
+(ray, box) slab test; beside it, its entry carries cull_bound_ms (and
+cull_bound_by), counted from the work its exact warp cull leaves on
+these rays: a bundle test per (warp, box) of the warps it culls and a
+slab test per (active ray, box) that the cull keeps.
 
 Prints one JSON line with the per-kernel summary, then a final JSON status
 line. Any failed check raises and the exit code is non-zero; without a
@@ -140,6 +149,14 @@ CLUSTER_KERNELS = ("phase1_exact", "cluster_scan_closest",
 FWD_KERNELS = CLUSTER_KERNELS + ("shade_pre", "shade_phong")
 BVH_FWD_KERNELS = ("bvh_walk_closest", "bvh_walk_anyhit", "shade_pre",
                    "shade_phong")
+
+#: each phase-4 kernel's entry point, as its mangled name in ptxas's
+#: report contains it
+SYMBOLS = {"phase1_exact": "phase1_exact_kernel",
+           "cluster_scan_closest": "cluster_scan_kernelILb0E",
+           "cluster_scan_anyhit": "cluster_scan_kernelILb1E",
+           "shade_pre": "shade_pre_kernel",
+           "shade_phong": "shade_phong_kernel"}
 
 #: the training scenes of phase 16 with their texture fetch
 TRAIN_GOLDENS = (("o_04_molecule", "nearest"), ("o_10_pokemon", "bilinear"))
@@ -246,10 +263,27 @@ def close_scaled(name, got, want, rel) -> float:
     return ratio
 
 
-def compare_kernels(data, camera, report):
-    """Phase 4: each kernel vs its plain version at the 1080p shapes."""
+def resources(name: str, ptxas: dict, dynamic: int = 0) -> dict:
+    """A kernel's registers, shared memory per block (static, from the
+    ptxas report, plus ``dynamic``) and spill stores; printed."""
+    hits = [v for k, v in ptxas.items() if SYMBOLS[name] in k]
+    check(len(hits) == 1, f"{name}: {len(hits)} entries in the ptxas report")
+    r = hits[0]
+    out = dict(registers=r["registers"],
+               smem_bytes=r["smem_static"] + dynamic,
+               spill_stores=r["spill_stores"])
+    print(f"{name}: {out['registers']} registers, {out['smem_bytes']} B "
+          f"shared memory per block ({r['smem_static']} static + {dynamic} "
+          f"dynamic), {out['spill_stores']} B spill stores")
+    return out
+
+
+def compare_kernels(data, camera, report, ptxas):
+    """Phase 4: each kernel vs its plain version at the 1080p shapes, with
+    its registers and shared memory per block."""
     import torch
 
+    from myraytracer_tpu_torch.kernels import library
     from myraytracer_tpu_torch.ops import cuda_cluster as cc
     from myraytracer_tpu_torch.ops import cuda_shade as cs
     from myraytracer_tpu_torch.ops import shade, tracer as tr
@@ -265,23 +299,40 @@ def compare_kernels(data, camera, report):
 
     # K2
     key = cc.phase1_exact(o4, d4, t0, act, bb)
-    key_p = cc.phase1_exact_plain(o4, d4, t0, act, bb)
+    work = {}
+    key_p = cc.phase1_exact_plain(o4, d4, t0, act, bb, stats=work)
     touched = key < INF
     check(bool((touched == (key_p < INF)).all()), "phase1_exact: touched sets differ")
     err = close("phase1_exact", key[touched], key_p[touched])
+    k2_bytes = nbytes(o4, d4, t0, act, bb, key)
     report["phase1_exact"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: cc.phase1_exact(o4, d4, t0, act, bb), 10),
         plain_ms=time_ms(lambda: cc.phase1_exact_plain(o4, d4, t0, act, bb), 2),
-        **bound(nbytes(o4, d4, t0, act, bb, key),
-                OPS_SLAB * o4.shape[0] * bb.shape[0]))
+        **bound(k2_bytes, OPS_SLAB * o4.shape[0] * bb.shape[0]))
+    # beside the yardstick, which counts every (ray, box) test: the work
+    # K2's exact warp cull leaves on these rays, as its plain version
+    # counts it (a bundle test and a slab test each OPS_SLAB)
+    cull = bound(k2_bytes, OPS_SLAB * (work["bundle_tests"] + work["slabs"]))
+    report["phase1_exact"].update(cull_bound_ms=cull["bound_ms"],
+                                  cull_bound_by=cull["bound_by"])
     print(f"phase1_exact: S={key.shape[0]} K={key.shape[1]} "
           f"touched/subgroup={float(touched.sum(1).float().mean()):.1f} "
-          f"max_abs_err={err}")
+          f"max_abs_err={err}; work: {work['warps']} live warps, "
+          f"{work['cull_warps']} culled ({work['mixed_warps']} straddling "
+          f"an axis; {work['bundle_tests']} bundle tests), "
+          f"{work['slabs']} slab tests "
+          f"({work['slabs'] / max(o4.shape[0], 1):.2f} a ray); bound "
+          f"{report['phase1_exact']['bound_ms']:.4f} ms, after the cull "
+          f"{cull['bound_ms']:.4f} ms ({cull['bound_by']})")
+    lib = library()
+    report["phase1_exact"].update(resources(
+        "phase1_exact", ptxas, lib.mrt_phase1_exact_smem(bb.shape[0])))
+    scan_smem = lib.mrt_cluster_scan_smem(pack.cl_rows.shape[1])
 
     # K1 closest-hit
     order, lb, n = cc.visit_lists(key)
-    scan_args = (o4, d4, t0, act, bb, pack.cl_const, order, lb, n,
+    scan_args = (o4, d4, t0, act, bb, pack.cl_rows, order, lb, n,
                  data.cl_first, data.cl_count, False)
     tk, ik = cc.cluster_scan(*scan_args)
     work = {}
@@ -296,7 +347,9 @@ def compare_kernels(data, camera, report):
         plain_ms=time_ms(lambda: cc.cluster_scan_plain(*scan_args), 2),
         **scan_bound(scan_args, (tk, ik), work))
     print(f"cluster_scan_closest: hits={float((ik >= 0).float().mean()):.4f} "
-          f"id_agreement={agree} max_abs_err(t)={err}")
+          f"id_agreement={agree} max_abs_err(t)={err}; {scan_work(work)}")
+    report["cluster_scan_closest"].update(
+        resources("cluster_scan_closest", ptxas, scan_smem))
 
     # K3 on the kernel's hits, as the tracer builds its inputs
     idx = ik[:R]
@@ -309,13 +362,14 @@ def compare_kernels(data, camera, report):
                 pack.geom.ana16, pack.geom.mat16, data.light_pos,
                 data.texels.shape[0])
     pre, report["shade_pre"] = compare_pre("shade_pre", data, pre_args)
+    report["shade_pre"].update(resources("shade_pre", ptxas))
 
     # K1' any-hit on the shadow batch (hull phase-1)
     so, sd, st, sact = pre[4:]
     so4, sd4, st0, sact_p = cc.pad_rays(so, sd, st, sact > 0)
     hkey = cc.phase1_keys(data, so4, sd4, st0, sact_p, True, True)
     horder, hlb, hn = cc.visit_lists(hkey)
-    any_args = (so4, sd4, st0, sact_p, bb, pack.cl_const, horder, hlb, hn,
+    any_args = (so4, sd4, st0, sact_p, bb, pack.cl_rows, horder, hlb, hn,
                 data.cl_first, data.cl_count, True)
     t_any, oi = cc.cluster_scan(*any_args)
     work = {}
@@ -329,12 +383,95 @@ def compare_kernels(data, camera, report):
         plain_ms=time_ms(lambda: cc.cluster_scan_plain(*any_args), 2),
         **scan_bound(any_args, (t_any, oi), work))
     print(f"cluster_scan_anyhit: occluded={float(occ.float().mean()):.4f} "
-          f"agreement={agree}")
+          f"agreement={agree}; {scan_work(work)}")
+    report["cluster_scan_anyhit"].update(
+        resources("cluster_scan_anyhit", ptxas, scan_smem))
 
     # K4
     shadow = occ[:L * R].to(torch.int32).reshape(L, R).contiguous()
     report["shade_phong"] = compare_phong("shade_phong", data, pack, o, d,
                                           kind, live_i, pre, shadow)
+    report["shade_phong"].update(resources("shade_phong", ptxas))
+
+
+def compare_edge_batches(dev):
+    """Phase 4b: K2, K1 and K1' vs their plain versions on the cluster
+    scan's edge batches: touched sets equal and keys within the bar, ids
+    (closest) and occlusion (any-hit, a finite t_max) on >= 99.5% of rays,
+    t within the edge batches' bar (kinds.edge_t_misses: RTOL_T plus
+    2^-22 of the solve's rounding scale, and within RTOL_T alone on >=
+    99%)."""
+    import numpy as np
+    import torch
+
+    from myraytracer_tpu_torch.ops import cuda_cluster as cc
+    from myraytracer_tpu_torch.ops.intersect import INF
+    from myraytracer_tpu_torch.scenes import kinds
+
+    data = kinds.cluster_edge_scene().build(device=dev)
+    count = data.cl_count.cpu().numpy()
+    bb = cc.cluster_boxes(data)
+    rows = cc.pack_cluster_rows(data)
+    check(data.cl_first.shape[0] % 32 != 0 and (count == 1).any()
+          and (count == data.cl_M).any(), "edge scene: the cut lost its edges")
+    rng = np.random.default_rng(0)
+    worst = dict(key=0.0, t=0.0, ids=1.0, occ=1.0)
+    for case in kinds.EDGE_CASES:
+        o, d, t_max, active = (
+            None if x is None else torch.from_numpy(x).to(dev)
+            for x in kinds.cluster_edge_rays(
+                case, data.cl_bbmin.cpu().numpy(),
+                data.cl_bbmax.cpu().numpy(), count))
+        o4, d4, t0, act = cc.pad_rays(o, d, t_max, active)
+        key = cc.phase1_exact(o4, d4, t0, act, bb)
+        key_p = cc.phase1_exact_plain(o4, d4, t0, act, bb)
+        touched = key_p < INF
+        check(bool(((key < INF) == touched).all()),
+              f"edge {case}: phase1_exact touched sets differ")
+        worst["key"] = max(worst["key"], close(f"edge {case}: phase1_exact",
+                                               key[touched], key_p[touched]))
+        for any_hit in (False, True):
+            tq = t0
+            if any_hit and t_max is None:
+                tq = torch.from_numpy(rng.uniform(0.5, 40.0, o4.shape[0])
+                                      .astype(np.float32)).to(dev)
+            k = cc.phase1_keys(data, o4, d4, tq, act, any_hit, any_hit)
+            args = (o4, d4, tq, act, bb, rows, *cc.visit_lists(k),
+                    data.cl_first, data.cl_count, any_hit)
+            tk, ik = cc.cluster_scan(*args)
+            tp, ip = cc.cluster_scan_plain(*args)
+            if any_hit:
+                agree = float(((ik >= 0) == (ip >= 0)).float().mean())
+                worst["occ"] = min(worst["occ"], agree)
+            else:
+                agree = float((ik == ip).float().mean())
+                worst["ids"] = min(worst["ids"], agree)
+                same = (ik == ip) & (ik >= 0)
+                n_bad, frac = kinds.edge_t_misses(
+                    rows, data.cl_first, o4[same], d4[same], ik[same],
+                    tk[same], tp[same], RTOL_T)
+                check(n_bad == 0 and frac >= 0.99, f"edge {case}: "
+                      f"cluster_scan_closest t: {n_bad} values outside the "
+                      f"bar, {frac} within rtol {RTOL_T}")
+                worst["t"] = max(worst["t"],
+                                 float((tk[same] - tp[same]).abs().max()))
+            check(agree >= ID_AGREE, f"edge {case}: cluster_scan "
+                  f"{'anyhit' if any_hit else 'closest'} agreement {agree}")
+    print(f"edge batches ({', '.join(kinds.EDGE_CASES)}; {data.n_tris} "
+          f"triangles, K={data.cl_first.shape[0]}): phase1_exact touched sets "
+          f"equal, max_abs_err {worst['key']}; cluster_scan_closest ids agree "
+          f"on >= {worst['ids']}, max_abs_err(t) {worst['t']}; "
+          f"cluster_scan_anyhit occlusion agrees on >= {worst['occ']}")
+
+
+def scan_work(work: dict) -> str:
+    """The plain scan's count of the work K1/K1' do on these inputs: the
+    share of the warps' slot steps that a lane needs is the kernel's lane
+    utilisation in its slot loop."""
+    util = work["tris"] / max(32 * work["warp_slots"], 1)
+    return (f"work: {work['visits']} visits, {work['slabs']} slab tests, "
+            f"{work['tris']} slot solves in {work['warp_slots']} warp slot "
+            f"steps (lanes busy {util:.3f})")
 
 
 def scan_bound(args, outs, work: dict) -> dict:
@@ -345,9 +482,9 @@ def scan_bound(args, outs, work: dict) -> dict:
     visited subgroup, and one slot solve for each real triangle of a
     touched (ray, cluster) pair (not the M padded slots; K1' stops at a
     pair's first occluding slot)."""
-    o4, d4, t0, act, bb, cl_const, order, lb, n_touched, first, count = \
+    o4, d4, t0, act, bb, cl_rows, order, lb, n_touched, first, count = \
         args[:11]
-    per_cluster = nbytes(bb[0], cl_const[0], first[:1], count[:1])
+    per_cluster = nbytes(bb[0], cl_rows[0], first[:1], count[:1])
     n_bytes = (nbytes(o4, d4, t0, act, n_touched, *outs)
                + work.get("visits", 0) * (order.element_size()
                                           + lb.element_size())
@@ -802,28 +939,28 @@ def compare_bvh_walk(data, camera, report):
         "bvh_walk_anyhit", data, so, sd, akw)
 
     # the yardstick: the cluster scan on the same rays
-    cl_const = cc.pack_cluster_constants(data)
+    cl_rows = cc.pack_cluster_rows(data)
     o4, d4, t0, act4 = cc.pad_rays(o, d, None, live)
     bb = cc.cluster_boxes(data)
     key = cc.phase1_exact(o4, d4, t0, act4, bb)
     order, lb, n = cc.visit_lists(key)
-    scan = (o4, d4, t0, act4, bb, cl_const, order, lb, n, data.cl_first,
+    scan = (o4, d4, t0, act4, bb, cl_rows, order, lb, n, data.cl_first,
             data.cl_count, False)
     k2 = time_ms(lambda: cc.phase1_exact(o4, d4, t0, act4, bb), 10)
     k1 = time_ms(lambda: cc.cluster_scan(*scan), 10)
-    cl = cc.intersect_clusters(data, o, d, cl_const=cl_const)
+    cl = cc.intersect_clusters(data, o, d, cl_rows=cl_rows)
     query = time_ms(lambda: cc.intersect_clusters(data, o, d,
-                                                  cl_const=cl_const), 5)
+                                                  cl_rows=cl_rows), 5)
     so4, sd4, st0, sact4 = cc.pad_rays(so, sd, st, act)
     hkey = cc.phase1_keys(data, so4, sd4, st0, sact4, True, True)
-    hscan = (so4, sd4, st0, sact4, bb, cl_const, *cc.visit_lists(hkey),
+    hscan = (so4, sd4, st0, sact4, bb, cl_rows, *cc.visit_lists(hkey),
              data.cl_first, data.cl_count, True)
     k1a = time_ms(lambda: cc.cluster_scan(*hscan), 10)
     cl_occ = cc.intersect_clusters(data, so, sd, t_max=st, any_hit=True,
-                                   active=act, cl_const=cl_const)
+                                   active=act, cl_rows=cl_rows)
     qa = time_ms(lambda: cc.intersect_clusters(
         data, so, sd, t_max=st, any_hit=True, active=act,
-        cl_const=cl_const), 5)
+        cl_rows=cl_rows), 5)
     id_agree = float((cl.idx == hit.idx).float().mean())
     occ_agree = float(((cl_occ.idx >= 0) == (occ.idx >= 0)).float().mean())
     check(id_agree >= ID_AGREE, f"K7 vs the cluster scan: ids agree on "
@@ -984,9 +1121,10 @@ def build_gallery(dev):
     return out
 
 
-def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
+def run(ptxas: dict, dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
         small=(480, 270), n_tris=18664) -> dict:
-    """All phases after the build; returns the per-kernel report."""
+    """All phases after the build (``ptxas``: the build's per-kernel
+    resources); returns the per-kernel report."""
     import torch
 
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -1005,7 +1143,8 @@ def run(dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
     check(data.n_tris == n_tris, f"office has {data.n_tris} triangles")
 
     report = {}
-    compare_kernels(data, scene.camera, report)
+    compare_kernels(data, scene.camera, report, ptxas)
+    compare_edge_batches(dev)
 
     cam_small = scene_08_office(tess=tess, resolution=small).camera
     img_k = render(data, cam_small)
@@ -1110,7 +1249,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
-    report = run()
+    report = run(kernels.kernel_resources(log))
     entries = [(n, src, rep) for n, src, rep in KERNELS + BVH_KERNELS] + [
         (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,

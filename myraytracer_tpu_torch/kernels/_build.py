@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -74,6 +75,13 @@ _SIGNATURES = {
     "mrt_seg_fwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
     "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
     "mrt_bvh_walk": [_P] * 9 + [_I] * 4 + [_P],
+}
+
+#: C helpers that give a kernel's dynamic shared memory per block, in
+#: bytes, from its shape arguments
+_SMEM_SIZES = {
+    "mrt_phase1_exact_smem": [_I],
+    "mrt_cluster_scan_smem": [_I],
 }
 
 _lib = None
@@ -165,6 +173,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _SMEM_SIZES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_size_t
         lib.mrt_error_string.argtypes = [ctypes.c_int]
         lib.mrt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -204,3 +216,30 @@ def check_inputs(name: str, device: torch.device, widths=None,
         if t.dim() != 2 or t.shape[1] != width:
             raise ValueError(f"{name}: {key[:-2]} must be [N, {width}], got "
                              f"{tuple(t.shape)}")
+
+
+def kernel_resources(log: str) -> dict:
+    """Per-kernel resources from ptxas's ``-v`` report in the build log:
+    mangled entry name -> {"registers", "smem_static" (bytes), "spill_stores"
+    (bytes)}. Dynamic shared memory is set at launch (``_SMEM_SIZES``)."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "smem_static": 0,
+                          "spill_stores": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[entry]["smem_static"] = int(m.group(1))
+            entry = None
+    return out

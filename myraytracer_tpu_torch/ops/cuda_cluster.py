@@ -47,12 +47,16 @@ _PLAIN_P1_CHUNK = 64
 _PLAIN_SCAN_CHUNK = 128
 
 
-def pack_cluster_constants(scene, tri_flat16: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """[K, 16, M] per-cluster solve constants, triangle slot innermost.
+def pack_cluster_rows(scene, tri_flat16: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """[K, M, 16] per-cluster solve constants, triangle-major: the scan's
+    layout (K1 and its plain version read it).
 
-    Rows: 0-2 N = c1 x c2, 3 N.p2, 4-6 c1, 7-9 c2, 10-12 K1 = c1 x p2,
-    13-15 K2 = p2 x c2, with c1 = p0 - p2 and c2 = p1 - p2.
+    Row j of cluster k holds the constants of its slot j: 0-2 N = c1 x c2,
+    3 N.p2, 4-6 c1, 7-9 c2, 10-12 K1 = c1 x p2, 13-15 K2 = p2 x c2, with
+    c1 = p0 - p2 and c2 = p1 - p2. A cluster's ``count`` real triangles
+    are the first ``count`` rows of its block, one contiguous run of
+    ``count * 64`` bytes (K1 copies only those).
     """
     if tri_flat16 is None:
         tri_flat16 = pack_tri_vertices(scene)
@@ -64,8 +68,15 @@ def pack_cluster_constants(scene, tri_flat16: Optional[torch.Tensor] = None
     k1 = vm.cross(c1, p2)
     k2 = vm.cross(p2, c2)
     ndp2 = torch.sum(n * p2, dim=-1, keepdim=True)        # [K, M, 1]
-    packed = torch.cat([n, ndp2, c1, c2, k1, k2], dim=-1)  # [K, M, 16]
-    return packed.transpose(1, 2).contiguous()             # [K, 16, M]
+    return torch.cat([n, ndp2, c1, c2, k1, k2], dim=-1).contiguous()
+
+
+def pack_cluster_constants(scene, tri_flat16: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """[K, 16, M] per-cluster solve constants, triangle slot innermost:
+    the reference's layout (``pallas_cluster.pack_cluster_constants``),
+    :func:`pack_cluster_rows` transposed."""
+    return pack_cluster_rows(scene, tri_flat16).transpose(1, 2).contiguous()
 
 
 def cluster_boxes(scene) -> torch.Tensor:
@@ -73,16 +84,30 @@ def cluster_boxes(scene) -> torch.Tensor:
     return torch.cat([scene.cl_bbmin, scene.cl_bbmax], dim=1).contiguous()
 
 
+def _check_sub(name: str, sub: int) -> None:
+    """The kernels run one subgroup per block of whole warps."""
+    if sub % 32 or not 0 < sub <= 512:
+        raise ValueError(f"{name}: sub must be a multiple of 32 in "
+                         f"[32, 512], got {sub}")
+
+
 # ---------------------------------------------------------------------------
 # K2: exact phase-1
 # ---------------------------------------------------------------------------
 
-def phase1_exact_plain(o4, d4, t0, act, bb, sub: int = SUB) -> torch.Tensor:
+def phase1_exact_plain(o4, d4, t0, act, bb, sub: int = SUB,
+                       stats: Optional[dict] = None) -> torch.Tensor:
     """Plain version of K2 -> key [S, K].
 
     key[s, k] = min over the active rays of subgroup s whose slab test
     hits box k with tmin <= t0 of max(tmin, 0); INF where none does.
+
+    ``stats`` is a measurement hook for the kernel's bound, as the scan's
+    is: when given, it gets the work that K2's exact warp cull leaves on
+    these inputs (:func:`_count_phase1_work`).
     """
+    if stats is not None:
+        _count_phase1_work(stats, o4, d4, t0, act, bb)
     S = o4.shape[0] // sub
     o = o4[:, :3].reshape(S, sub, 1, 3)
     iv = (1.0 / d4[:, :3]).reshape(S, sub, 1, 3)
@@ -100,6 +125,72 @@ def phase1_exact_plain(o4, d4, t0, act, bb, sub: int = SUB) -> torch.Tensor:
     return torch.cat(keys, dim=0)
 
 
+def _count_phase1_work(stats: dict, o4, d4, t0, act, bb,
+                       chunk: int = 2048) -> None:
+    """The work of K2's warps (32 consecutive rays) on these inputs.
+
+    A warp with an active ray is ``warps``. One whose active rays have
+    finite o and finite nonzero 1/d, against boxes with lo <= hi, is
+    ``cull_warps``: it tests each box once against the bounds of its
+    active rays (``bundle_tests``, K a warp), and a box that test keeps
+    gets each active ray's slab test; ``mixed_warps`` of them straddle an
+    axis (their rays' 1/d take both signs on it) and cull on both planes'
+    corners. Every other warp tests every box. ``slabs``: the (active
+    ray, tested box) pairs.
+    """
+    K = bb.shape[0]
+    W = o4.shape[0] // 32
+    o = o4[:, :3].reshape(W, 32, 3)
+    iv = (1.0 / d4[:, :3]).reshape(W, 32, 3)
+    a = act.reshape(W, 32) > 0
+    tr = t0.reshape(W, 32)
+    lo, hi = bb[None, :, 0:3], bb[None, :, 3:6]               # [1, K, 3]
+    ordered = bool((lo <= hi).all())
+    n = dict(warps=0, cull_warps=0, mixed_warps=0, bundle_tests=0, slabs=0)
+    for c in range(0, W, chunk):
+        sl = slice(c, c + chunk)
+        oc, ivc, ac, trc = o[sl], iv[sl], a[sl], tr[sl]
+        a3 = ac[..., None]
+        clear = (torch.isfinite(oc) & torch.isfinite(ivc) & (ivc != 0)).all(-1)
+        live = ac.any(1)
+        cull = live & ordered & (~ac | clear).all(1)
+        big = torch.full_like(oc, float("inf"))
+
+        def bounds(x):
+            return (torch.where(a3, x, big).amin(1)[:, None],
+                    torch.where(a3, x, -big).amax(1)[:, None])  # [C, 1, 3]
+
+        (ol, oh), (il, ih) = bounds(oc), bounds(ivc)
+        # each axis's plane distances' extremes lie at the bounds' corners,
+        # as the kernel takes them: the near and far plane by the sign of
+        # 1/d where the warp's rays share it, both planes where they do not
+        neg, pos = ih < 0, il > 0
+        p_near = torch.where(neg, hi, lo)                     # [C, K, 3]
+        p_far = torch.where(neg, lo, hi)
+        e_near = torch.where(neg, ol, oh)
+        e_far = torch.where(neg, oh, ol)
+        a_n, a_f = p_near - e_near, p_far - e_far
+        lb = torch.minimum(a_n * il, a_n * ih)
+        ub = torch.maximum(a_f * il, a_f * ih)
+        prods = [(p - e) * i for p in (lo, hi) for e in (ol, oh)
+                 for i in (il, ih)]
+        one_oct = (neg | pos).all(-1)                         # [C, 1]
+        lb = torch.where(one_oct[..., None], lb,
+                         torch.stack(prods).amin(0)).amax(-1)  # [C, K]
+        ub = torch.where(one_oct[..., None], ub,
+                         torch.stack(prods).amax(0)).amin(-1)
+        tr_max = torch.where(ac, trc, -float("inf")).amax(1)
+        kept = ((ub >= lb) & (ub > EPS_HIT) & (lb <= tr_max[:, None])).sum(1)
+        tested = torch.where(cull, kept, K)
+        n["warps"] += int(live.sum())
+        n["cull_warps"] += int(cull.sum())
+        n["mixed_warps"] += int((cull & ~one_oct[:, 0]).sum())
+        n["bundle_tests"] += int(cull.sum()) * K
+        n["slabs"] += int((ac.sum(1) * tested * live).sum())
+    for k, v in n.items():
+        stats[k] = stats.get(k, 0) + v
+
+
 def phase1_exact(o4, d4, t0, act, bb, sub: int = SUB) -> torch.Tensor:
     """K2 on CUDA tensors, :func:`phase1_exact_plain` on CPU tensors.
 
@@ -110,6 +201,7 @@ def phase1_exact(o4, d4, t0, act, bb, sub: int = SUB) -> torch.Tensor:
     dev = o4.device
     _build.check_inputs("phase1_exact", dev, o4_f=o4, d4_f=d4, t0_f=t0,
                         act_i=act, bb_f=bb)
+    _check_sub("phase1_exact", sub)
     S, K = o4.shape[0] // sub, bb.shape[0]
     key = torch.empty((S, K), dtype=torch.float32, device=dev)
     _build.launch("mrt_phase1_exact", "phase1_exact", dev,
@@ -243,7 +335,8 @@ def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit,
                  stats=None):
     """One visit step of the plain scan for C subgroups.
 
-    tc [C, 16, M] constants; count, first [C]; oc, dc, ivc [C, sub, 3];
+    tc [C, M, 16] constants (triangle-major); count, first [C]; oc, dc,
+    ivc [C, sub, 3];
     tbc, ibc, ac [C, sub] (fresh copies: updated in place); bbk [C, 6].
     Only the rays whose slab test touches their subgroup's cluster are
     solved, each against the cluster's M slots. Returns (tb, ib).
@@ -256,7 +349,7 @@ def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit,
         stats["slabs"] = stats.get("slabs", 0) + int(want.sum())
     if ci.numel() == 0:
         return tbc, ibc
-    tp = tc[ci]                                            # [N, 16, M]
+    tp = tc[ci]                                            # [N, M, 16]
     o, d = oc[ci, ri], dc[ci, ri]                          # [N, 3]
     o0, o1, o2 = o[:, 0:1], o[:, 1:2], o[:, 2:3]           # [N, 1]
     d0, d1, d2 = d[:, 0:1], d[:, 1:2], d[:, 2:3]
@@ -265,11 +358,12 @@ def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit,
     w2 = o0 * d1 - o1 * d0
 
     def dotc(row, a0, a1, a2):
-        # constant rows [N, M] . ray components [N, 1] -> [N, M]
-        return (a0 * tp[:, row] + a1 * tp[:, row + 1] + a2 * tp[:, row + 2])
+        # constant columns [N, M] . ray components [N, 1] -> [N, M]
+        return (a0 * tp[..., row] + a1 * tp[..., row + 1]
+                + a2 * tp[..., row + 2])
 
     s = -dotc(0, d0, d1, d2)
-    t_num = dotc(0, o0, o1, o2) - tp[:, 3]
+    t_num = dotc(0, o0, o1, o2) - tp[..., 3]
     a_num = dotc(7, w0, w1, w2) + dotc(13, d0, d1, d2)
     b_num = -dotc(4, w0, w1, w2) + dotc(10, d0, d1, d2)
     s_ok = s.abs() > EPS_DET
@@ -279,7 +373,7 @@ def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit,
     alpha = a_num * inv_s
     beta = b_num * inv_s
     inside = (alpha >= 0) & (beta >= 0) & (alpha + beta <= 1)
-    M = tc.shape[2]
+    M = tc.shape[1]
     slot_ok = torch.arange(M, device=tc.device)[None, :] < count[ci][:, None]
     ok = s_ok & (t_tri > EPS_HIT) & inside & slot_ok
     t_tri = torch.where(ok, t_tri, torch.full_like(t_tri, INF))
@@ -292,10 +386,14 @@ def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit,
             need = torch.where(hit_any, occl.int().argmax(dim=-1) + 1,
                                count[ci])
             stats["tris"] = stats.get("tris", 0) + int(need.sum())
+            lane_need = torch.zeros_like(ibc)
+            lane_need[ci, ri] = need.to(lane_need.dtype)
+            _count_warp_slots(stats, lane_need)
         ibc[ci, ri] = torch.where(hit_any, first[ci], ib_p)
         return tbc, ibc
     if stats is not None:
         stats["tris"] = stats.get("tris", 0) + int(count[ci].sum())
+        _count_warp_slots(stats, torch.where(touch, count[:, None], 0))
     j = torch.argmin(t_tri, dim=-1)                         # first minimum
     t_min = torch.gather(t_tri, -1, j[:, None])[:, 0]
     better = t_min < tb_p
@@ -304,7 +402,16 @@ def _solve_chunk(tc, count, first, oc, dc, ivc, tbc, ibc, ac, bbk, any_hit,
     return tbc, ibc
 
 
-def cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
+def _count_warp_slots(stats: dict, lane_need: torch.Tensor) -> None:
+    """``warp_slots``: the slot steps a warp of 32 rays takes, the most
+    any of its lanes needs (lane_need [C, sub]): with ``tris``, the share
+    of a warp's lanes that solve a slot they need."""
+    C, sub = lane_need.shape
+    steps = lane_need.reshape(C, sub // 32, 32).amax(dim=-1)
+    stats["warp_slots"] = stats.get("warp_slots", 0) + int(steps.sum())
+
+
+def cluster_scan_plain(o4, d4, t0, act, bb, cl_rows, order, lb, n_touched,
                        cl_first, cl_count, any_hit: bool, sub: int = SUB,
                        stats: Optional[dict] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -320,7 +427,9 @@ def cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
     still searching in each visited subgroup; ``tris``: the real
     triangles (``cl_count``, not the M padded slots) of each touched
     (ray, cluster) pair; ``visits``: the (subgroup, step) visits;
-    ``clusters``: the set of visited cluster ids.
+    ``clusters``: the set of visited cluster ids; ``warp_slots``: the slot
+    steps of the kernel's warps (sub a multiple of 32), each the most any
+    of the warp's lanes needs.
     """
     S, K = order.shape
     o = o4[:, :3].reshape(S, sub, 3)
@@ -344,7 +453,7 @@ def cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
             sidx = live[c:c + _PLAIN_SCAN_CHUNK]
             k = order[sidx, g].long()
             tb[sidx], ib[sidx] = _solve_chunk(
-                cl_const[k], cl_count[k], cl_first[k], o[sidx], d[sidx],
+                cl_rows[k], cl_count[k], cl_first[k], o[sidx], d[sidx],
                 iv[sidx], tb[sidx], ib[sidx], a[sidx], bb[k], any_hit, stats)
         if any_hit:
             more = (a[live] & (ib[live] < 0)).any(dim=1)
@@ -354,31 +463,35 @@ def cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
     return tb.reshape(-1), ib.reshape(-1)
 
 
-def cluster_scan(o4, d4, t0, act, bb, cl_const, order, lb, n_touched,
+def cluster_scan(o4, d4, t0, act, bb, cl_rows, order, lb, n_touched,
                  cl_first, cl_count, any_hit: bool, sub: int = SUB
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 / K1' on CUDA tensors, :func:`cluster_scan_plain` on CPU ones.
 
     o4, d4 [S*sub, 4] f32; t0 [S*sub] f32; act [S*sub] i32; bb [K, 6] f32;
-    cl_const [K, 16, M] f32; order [S, K] i32; lb [S, K] f32;
-    n_touched [S] i32; cl_first, cl_count [K] i32.
+    cl_rows [K, M, 16] f32 (:func:`pack_cluster_rows`); order [S, K] i32;
+    lb [S, K] f32; n_touched [S] i32; cl_first, cl_count [K] i32.
     """
     if o4.device.type == "cpu":
-        return cluster_scan_plain(o4, d4, t0, act, bb, cl_const, order, lb,
+        return cluster_scan_plain(o4, d4, t0, act, bb, cl_rows, order, lb,
                                   n_touched, cl_first, cl_count, any_hit, sub)
     dev = o4.device
     _build.check_inputs("cluster_scan", dev, o4_f=o4, d4_f=d4, t0_f=t0,
-                        act_i=act, bb_f=bb, cl_const_f=cl_const, order_i=order,
+                        act_i=act, bb_f=bb, cl_rows_f=cl_rows, order_i=order,
                         lb_f=lb, n_touched_i=n_touched, cl_first_i=cl_first,
                         cl_count_i=cl_count)
+    _check_sub("cluster_scan", sub)
+    if cl_rows.dim() != 3 or cl_rows.shape[2] != 16 or cl_rows.data_ptr() % 16:
+        raise ValueError(f"cluster_scan: cl_rows must be a 16-byte aligned "
+                         f"[K, M, 16] table, got {tuple(cl_rows.shape)}")
     S, K = order.shape
-    M = cl_const.shape[2]
+    M = cl_rows.shape[1]
     t = torch.empty(S * sub, dtype=torch.float32, device=dev)
     idx = torch.empty(S * sub, dtype=torch.int32, device=dev)
     _build.launch("mrt_cluster_scan",
                   "cluster_scan_anyhit" if any_hit else "cluster_scan_closest",
                   dev, o4.data_ptr(), d4.data_ptr(), t0.data_ptr(),
-                  act.data_ptr(), bb.data_ptr(), cl_const.data_ptr(),
+                  act.data_ptr(), bb.data_ptr(), cl_rows.data_ptr(),
                   order.data_ptr(), lb.data_ptr(), n_touched.data_ptr(),
                   cl_first.data_ptr(), cl_count.data_ptr(), t.data_ptr(),
                   idx.data_ptr(), S, K, M, sub, int(any_hit))
@@ -427,14 +540,14 @@ def phase1_keys(scene, o4, d4, t0, act, any_hit: bool, finite: bool,
 
 
 def intersect_clusters(scene, o, d, t_max=None, any_hit: bool = False,
-                       active=None, cl_const=None, sub: int = SUB,
+                       active=None, cl_rows=None, sub: int = SUB,
                        plain: bool = False,
                        phase1: Optional[str] = None) -> TriHit:
     """Closest (or any) triangle hit per ray through the cluster scan.
 
     o, d [R, 3] or [R, 4]; ``t_max`` [R] bounds the hit distance (INF
-    without it); ``active`` [R] bool masks rays out; ``cl_const`` is
-    :func:`pack_cluster_constants` (built here when None). Returns
+    without it); ``active`` [R] bool masks rays out; ``cl_rows`` is
+    :func:`pack_cluster_rows` (built here when None). Returns
     TriHit: idx -1 and t INF on a miss; any-hit queries report the first
     triangle of the occluding cluster. ``plain=True`` runs the plain
     PyTorch versions of the kernels on any device; ``phase1`` is
@@ -444,14 +557,14 @@ def intersect_clusters(scene, o, d, t_max=None, any_hit: bool = False,
     if scene.n_tris == 0:
         return TriHit(torch.full((R,), -1, dtype=torch.int32, device=o.device),
                       torch.full((R,), INF, device=o.device))
-    if cl_const is None:
-        cl_const = pack_cluster_constants(scene)
+    if cl_rows is None:
+        cl_rows = pack_cluster_rows(scene)
     o4, d4, t0, act = pad_rays(o, d, t_max, active, sub)
     key = phase1_keys(scene, o4, d4, t0, act, any_hit, t_max is not None,
                       sub, plain, phase1)
     order, lb, n_touched = visit_lists(key)
     scan = cluster_scan_plain if plain else cluster_scan
-    t, idx = scan(o4, d4, t0, act, cluster_boxes(scene), cl_const, order, lb,
+    t, idx = scan(o4, d4, t0, act, cluster_boxes(scene), cl_rows, order, lb,
                   n_touched, scene.cl_first, scene.cl_count, any_hit, sub)
     idx = idx[:R]
     t = torch.where(idx >= 0, t[:R], torch.full_like(t[:R], INF))

@@ -126,7 +126,7 @@ class Bounce(NamedTuple):
 class TracePack(NamedTuple):
     """Scene tables the segments read, packed once per render."""
 
-    cl_const: Optional[torch.Tensor]  # [K, 16, M] for "cluster", else None
+    cl_rows: Optional[torch.Tensor]   # [K, M, 16] for "cluster", else None
     tri_flat: Optional[torch.Tensor]  # [T, 16] for "bvh"/"brute", else None
     geom: shade.ShadeGeom             # tri_pack, mat16, ana16
     env: torch.Tensor                 # [6] ambience, background
@@ -134,17 +134,17 @@ class TracePack(NamedTuple):
 
 def pack_trace(scene, cfg: TraceConfig = TraceConfig()) -> TracePack:
     """Pack the tables :func:`segment_step` reads (once per render): the
-    cluster constants for "cluster", the corner rows of the current
-    vertices for "bvh" and "brute"."""
+    triangle-major cluster constants for "cluster", the corner rows of the
+    current vertices for "bvh" and "brute"."""
     method = cfg.validate().tri_method
-    cl_const = tri_flat = None
+    cl_rows = tri_flat = None
     if scene.n_tris:
         if method == "cluster":
-            cl_const = cc.pack_cluster_constants(scene)
+            cl_rows = cc.pack_cluster_rows(scene)
         else:
             tri_flat = trv.pack_tri_vertices(scene).detach().contiguous()
     return TracePack(
-        cl_const=cl_const, tri_flat=tri_flat,
+        cl_rows=cl_rows, tri_flat=tri_flat,
         geom=shade.pack_shade_geom(scene),
         env=torch.cat([scene.ambience, scene.background]).contiguous())
 
@@ -268,7 +268,7 @@ def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
     if method == "cluster":
         return cc.intersect_clusters(scene, o, d, t_max=t_max,
                                      any_hit=any_hit, active=active,
-                                     cl_const=pack.cl_const, plain=cfg.plain,
+                                     cl_rows=pack.cl_rows, plain=cfg.plain,
                                      phase1=cfg.phase1)
     if method == "bvh":
         return trv.traverse_bvh(scene, o, d, t_max=t_max, any_hit=any_hit,

@@ -205,7 +205,7 @@ def test_trace_config_rejects_unknown_methods():
             tr.pack_trace(data, cfg)
     assert tr.TraceConfig().tri_method == "cluster"
     bvh = tr.pack_trace(data, tr.TraceConfig(tri_method="bvh"))
-    assert bvh.cl_const is None and bvh.tri_flat.shape == (data.n_tris, 16)
+    assert bvh.cl_rows is None and bvh.tri_flat.shape == (data.n_tris, 16)
     assert tr.pack_trace(data).tri_flat is None
 
 

@@ -11,7 +11,9 @@ Tolerances: phase-1 keys and shading outputs within rtol 1e-5 / atol
 1e-6 with integer outputs exact (same fp32 expressions in the same order;
 the shading kernels are built without FMA contraction). The cluster scan
 is built with contraction: hit ids and occlusion agree on >= 99.5% of
-rays, t within rtol 5e-5 where the ids agree (the reference's bars). The
+rays, t within rtol 5e-5 where the ids agree (the reference's bars; on
+the edge batches plus 2^-22 of the solve's rounding scale, where origins
+near a triangle's plane make its numerator cancel). The
 shade-segment backward (K6) sums its light and env cotangents with
 atomics, and index_add_ sums the row cotangents per triangle, both in a
 run-dependent order: cotangents within 3e-5 * max|plain| (the
@@ -74,7 +76,7 @@ def _scan_inputs(data, o, d, t_max=None, active=None, any_hit=False):
     key = cc.phase1_keys(data, o4, d4, t0, act, any_hit, t_max is not None)
     order, lb, n = cc.visit_lists(key)
     return (o4, d4, t0, act, cc.cluster_boxes(data),
-            cc.pack_cluster_constants(data), order, lb, n, data.cl_first,
+            cc.pack_cluster_rows(data), order, lb, n, data.cl_first,
             data.cl_count, any_hit)
 
 
@@ -116,13 +118,80 @@ def test_cluster_scan_kernel_matches_plain(cuda, any_hit):
         torch.testing.assert_close(tk[same], tp[same], rtol=5e-5, atol=ATOL)
 
 
+@pytest.mark.parametrize("case", kinds.EDGE_CASES)
+def test_edge_batches_kernels_match_plain(cuda, case):
+    """K2, K1 and K1' on the cluster scan's edge batches: zero direction
+    components, origins on box faces and inside boxes, finite t0,
+    inactive subgroups, clusters of one and of M triangles."""
+    data = kinds.cluster_edge_scene().build(device=cuda)
+    o, d, t_max, active = (
+        None if x is None else torch.from_numpy(x).to(cuda)
+        for x in kinds.cluster_edge_rays(
+            case, data.cl_bbmin.cpu().numpy(), data.cl_bbmax.cpu().numpy(),
+            data.cl_count.cpu().numpy()))
+    o4, d4, t0p, act = cc.pad_rays(o, d, t_max, active)
+    bb = cc.cluster_boxes(data)
+    got = cc.phase1_exact(o4, d4, t0p, act, bb)
+    want = cc.phase1_exact_plain(o4, d4, t0p, act, bb)
+    assert torch.equal(got < INF, want < INF)
+    fin = want < INF
+    assert bool(fin.any())
+    print(f"{case}: phase1_exact max abs err "
+          f"{float((got[fin] - want[fin]).abs().max())}")
+    torch.testing.assert_close(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+    t_any = (torch.rand(o.shape[0], device=cuda) * 40 + 0.5
+             if t_max is None else t_max)
+    for any_hit in (False, True):
+        args = _scan_inputs(data, o, d, t_any if any_hit else t_max, active,
+                            any_hit)
+        tk, ik = cc.cluster_scan(*args)
+        tp, ip = cc.cluster_scan_plain(*args)
+        if any_hit:
+            assert float(((ik >= 0) == (ip >= 0)).float().mean()) >= 0.995
+        else:
+            assert float((ik == ip).float().mean()) >= 0.995
+            same = (ik == ip) & (ik >= 0)
+            assert bool(same.any())
+            # the edge batches' t bar: near a triangle's plane (origins
+            # inside boxes) o.N - N.p2 cancels, and the kernel contracts
+            # it into FMAs
+            n_bad, frac = kinds.edge_t_misses(
+                args[5], data.cl_first, o4[same], d4[same], ik[same],
+                tk[same], tp[same])
+            assert n_bad == 0 and frac >= 0.99, (n_bad, frac)
+
+
+def test_cluster_rows_round_trip_to_constants(cuda):
+    """The scan's triangle-major table is the reference layout transposed,
+    and a cluster's real triangles are the first count rows of its block."""
+    data, _ = _random_scene(6, 700, cuda)
+    rows = cc.pack_cluster_rows(data)
+    const = cc.pack_cluster_constants(data)
+    K, M = data.cl_first.shape[0], data.cl_M
+    assert rows.shape == (K, M, 16) and rows.is_contiguous()
+    assert rows.data_ptr() % 16 == 0
+    assert torch.equal(rows.transpose(1, 2), const)
+    assert torch.equal(rows.transpose(1, 2).contiguous().transpose(1, 2),
+                       rows)
+    flat = rows.reshape(K * M, 16)
+    tri = cc.pack_cluster_rows(data, trv.pack_tri_vertices(data))
+    assert torch.equal(tri, rows)
+    for k in (0, K // 2, K - 1):
+        f, c = int(data.cl_first[k]), int(data.cl_count[k])
+        # cluster k's first c rows are triangles f .. f + c - 1, the rows
+        # the kernel copies (c * 64 bytes from k * M * 64)
+        assert torch.equal(flat[k * M:k * M + c], rows[k, :c])
+        if k + 1 < K and c < M:
+            assert torch.equal(rows[k, c], rows[k + 1, 0])
+
+
 def test_shading_kernels_match_plain(cuda):
     s = scene_08_office(tess=2, resolution=(96, 64))
     data = s.build(device=cuda)
     pack = tr.pack_trace(data)
     o, d = primary_rays_blocked(s.camera, cuda)
     R = o.shape[0]
-    hit = cc.intersect_clusters(data, o, d, cl_const=pack.cl_const)
+    hit = cc.intersect_clusters(data, o, d, cl_rows=pack.cl_rows)
     live = (torch.rand(R, device=cuda) > 0.1).to(torch.int32)
     valid = (hit.idx >= 0) & (live > 0)
     kind = torch.where(valid, shade.KIND_TRI, shade.KIND_MISS).to(torch.int32)
@@ -257,6 +326,12 @@ def test_wrappers_reject_bad_inputs(cuda):
         cc.phase1_exact(o4, d4, t0, act.float(), cc.cluster_boxes(data))
     with pytest.raises(ValueError, match="bb"):
         cc.phase1_exact(o4, d4, t0, act, cc.cluster_boxes(data).cpu())
+    args = list(_scan_inputs(data, o, d))
+    with pytest.raises(ValueError, match="cl_rows"):
+        cc.cluster_scan(*args[:5], cc.pack_cluster_constants(data),
+                        *args[6:])
+    with pytest.raises(ValueError, match="sub"):
+        cc.phase1_exact(o4, d4, t0, act, cc.cluster_boxes(data), sub=500)
 
 
 def test_shading_wrappers_reject_bad_tables(cuda):

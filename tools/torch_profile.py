@@ -124,7 +124,10 @@ def main() -> int:
             for e in events if e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    own = sum(r[0] for r in rows if r[2].startswith("(anonymous namespace)::"))
+    # the port's kernels live in an anonymous namespace; a template
+    # kernel's name (cluster_scan_kernel<...>) carries its return type
+    own = sum(r[0] for r in rows if r[2].startswith(
+        ("(anonymous namespace)::", "void (anonymous namespace)::")))
     what = ("render_aa" if args.scene
             else "fwd+bwd step" if args.fwd_bwd else "render")
     where = args.scene or f"office tess {tess}"
