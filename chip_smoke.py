@@ -20,9 +20,16 @@ nvcc. Phases:
   5. office at 480x270 through the kernels and through the plain versions;
   6. office at 1920x1080 through the kernels, warm, three times: launch
      counts of that run, median seconds, rays/s, image checks;
-  7. the shade-segment kernels K5 (forward) and K6 (backward) against
-     their plain versions on the 1080p frame's first segment, with the
-     topology from trace_topology and seeded random cotangents;
+  7. the shade-segment kernels K5 (forward) and K6 (backward, the row
+     cotangents summed into the tri_pack cotangent) against their plain
+     versions on the 1080p frame's first segment, with the topology from
+     trace_topology and seeded random cotangents (K6's tri_pack
+     cotangent once more without the rays whose re-solve fails, whose
+     entries near 3e38 set the scale of the first comparison); beside K6,
+     the time of the row scatter that a reverse without the row sum needs
+     after it (index_add_ of the per-ray rows into tri_pack), the other
+     half of the same function done that way; registers, spills and SASS
+     counts of K5 and K6;
   8. the training step render_loss_grad_image at 480x270 three ways
      (kernels, plain versions, the autograd replay): losses and all 23
      gradients;
@@ -46,7 +53,11 @@ nvcc. Phases:
      whether that budget covers every pixel above the threshold;
  13. the BVH walk K7 against its plain version on the office 1920x1080
      frame's primary rays (closest hit) and on the shadow batch K3 emits
-     for those hits (any-hit, t_max, active): ids, errors, both times;
+     for those hits (any-hit, t_max, active): ids, errors, both times,
+     lanes busy (the plain walk's step counts per warp: over the rays in
+     call order, and for any-hit over the active rays compacted as K7
+     launches them), issue slots per warp step, registers, spills and
+     SASS counts;
      beside it, on the same rays, the cluster scan's K2 + K1 and K1'
      times and its ids' agreement with K7's;
  14. office at 1920x1080 with tri_method="bvh": render, render_aa and
@@ -69,11 +80,11 @@ count what this run's data needs: a gathered table only the distinct
 rows its indices select, the scans the slab tests, visits and real
 triangles (not padded slots) that the plain scan counts on these inputs,
 and the walk the distinct node, link and corner rows and the node steps
-and slot solves that the plain walk counts. K2's bound counts every
-(ray, box) slab test; beside it, its entry carries cull_bound_ms (and
-cull_bound_by), counted from the work its exact warp cull leaves on
-these rays: a bundle test per (warp, box) of the warps it culls and a
-slab test per (active ray, box) that the cull keeps.
+and slot solves that the plain walk counts. K2's bound counts the work
+its exact warp cull leaves on these rays: a bundle test per (warp, box)
+of the warps it culls and a slab test per (active ray, box) that the
+cull keeps; beside it, its entry carries all_pairs_bound_ms (and
+all_pairs_bound_by), every (ray, box) slab test.
 
 Prints one JSON line with the per-kernel summary, then a final JSON status
 line. Any failed check raises and the exit code is non-zero; without a
@@ -150,13 +161,17 @@ FWD_KERNELS = CLUSTER_KERNELS + ("shade_pre", "shade_phong")
 BVH_FWD_KERNELS = ("bvh_walk_closest", "bvh_walk_anyhit", "shade_pre",
                    "shade_phong")
 
-#: each phase-4 kernel's entry point, as its mangled name in ptxas's
-#: report contains it
+#: each kernel's entry point, as its mangled name in ptxas's report
+#: contains it
 SYMBOLS = {"phase1_exact": "phase1_exact_kernel",
            "cluster_scan_closest": "cluster_scan_kernelILb0E",
            "cluster_scan_anyhit": "cluster_scan_kernelILb1E",
            "shade_pre": "shade_pre_kernel",
-           "shade_phong": "shade_phong_kernel"}
+           "shade_phong": "shade_phong_kernel",
+           "seg_fwd": "seg_fwd_kernel",
+           "seg_bwd": "seg_bwd_kernel",
+           "bvh_walk_closest": "bvh_walk_kernelILb0E",
+           "bvh_walk_anyhit": "bvh_walk_kernelILb1E"}
 
 #: the training scenes of phase 16 with their texture fetch
 TRAIN_GOLDENS = (("o_04_molecule", "nearest"), ("o_10_pokemon", "bilinear"))
@@ -265,17 +280,36 @@ def close_scaled(name, got, want, rel) -> float:
 
 def resources(name: str, ptxas: dict, dynamic: int = 0) -> dict:
     """A kernel's registers, shared memory per block (static, from the
-    ptxas report, plus ``dynamic``) and spill stores; printed."""
+    ptxas report, plus ``dynamic``), spill stores and loads and stack
+    frame; printed."""
     hits = [v for k, v in ptxas.items() if SYMBOLS[name] in k]
     check(len(hits) == 1, f"{name}: {len(hits)} entries in the ptxas report")
     r = hits[0]
     out = dict(registers=r["registers"],
                smem_bytes=r["smem_static"] + dynamic,
-               spill_stores=r["spill_stores"])
+               spill_stores=r["spill_stores"], spill_loads=r["spill_loads"],
+               stack_frame=r["stack_frame"])
     print(f"{name}: {out['registers']} registers, {out['smem_bytes']} B "
           f"shared memory per block ({r['smem_static']} static + {dynamic} "
-          f"dynamic), {out['spill_stores']} B spill stores")
+          f"dynamic), {out['spill_stores']} B spill stores, "
+          f"{out['spill_loads']} B spill loads, {out['stack_frame']} B "
+          f"stack frame")
     return out
+
+
+def sass_counts(name: str, sass) -> dict:
+    """A kernel's static SASS counts (kernels._build.kernel_sass), or {}
+    when cuobjdump was not found; printed."""
+    if sass is None:
+        print(f"{name}: SASS not measured (no cuobjdump)")
+        return {}
+    hits = [v for k, v in sass.items() if SYMBOLS[name] in k]
+    check(len(hits) == 1, f"{name}: {len(hits)} entries in the SASS")
+    s = hits[0]
+    print(f"{name}: SASS {s['instructions']} instructions, {s['ldl']} LDL, "
+          f"{s['stl']} STL, {s['atomics']} atomics, loop bodies {s['loops']}")
+    return dict(sass_instructions=s["instructions"], sass_ldl=s["ldl"],
+                sass_stl=s["stl"], sass_loops=s["loops"])
 
 
 def compare_kernels(data, camera, report, ptxas):
@@ -305,26 +339,27 @@ def compare_kernels(data, camera, report, ptxas):
     check(bool((touched == (key_p < INF)).all()), "phase1_exact: touched sets differ")
     err = close("phase1_exact", key[touched], key_p[touched])
     k2_bytes = nbytes(o4, d4, t0, act, bb, key)
+    # the bound counts the work K2's exact warp cull leaves on these rays,
+    # as its plain version counts it (a bundle test and a slab test each
+    # OPS_SLAB); beside it, every (ray, box) slab test
+    all_pairs = bound(k2_bytes, OPS_SLAB * o4.shape[0] * bb.shape[0])
     report["phase1_exact"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: cc.phase1_exact(o4, d4, t0, act, bb), 10),
         plain_ms=time_ms(lambda: cc.phase1_exact_plain(o4, d4, t0, act, bb), 2),
-        **bound(k2_bytes, OPS_SLAB * o4.shape[0] * bb.shape[0]))
-    # beside the yardstick, which counts every (ray, box) test: the work
-    # K2's exact warp cull leaves on these rays, as its plain version
-    # counts it (a bundle test and a slab test each OPS_SLAB)
-    cull = bound(k2_bytes, OPS_SLAB * (work["bundle_tests"] + work["slabs"]))
-    report["phase1_exact"].update(cull_bound_ms=cull["bound_ms"],
-                                  cull_bound_by=cull["bound_by"])
+        **bound(k2_bytes, OPS_SLAB * (work["bundle_tests"] + work["slabs"])),
+        all_pairs_bound_ms=all_pairs["bound_ms"],
+        all_pairs_bound_by=all_pairs["bound_by"])
     print(f"phase1_exact: S={key.shape[0]} K={key.shape[1]} "
           f"touched/subgroup={float(touched.sum(1).float().mean()):.1f} "
           f"max_abs_err={err}; work: {work['warps']} live warps, "
           f"{work['cull_warps']} culled ({work['mixed_warps']} straddling "
           f"an axis; {work['bundle_tests']} bundle tests), "
           f"{work['slabs']} slab tests "
-          f"({work['slabs'] / max(o4.shape[0], 1):.2f} a ray); bound "
-          f"{report['phase1_exact']['bound_ms']:.4f} ms, after the cull "
-          f"{cull['bound_ms']:.4f} ms ({cull['bound_by']})")
+          f"({work['slabs'] / max(o4.shape[0], 1):.2f} a ray); bound after "
+          f"the cull {report['phase1_exact']['bound_ms']:.4f} ms "
+          f"({report['phase1_exact']['bound_by']}), every (ray, box) test "
+          f"{all_pairs['bound_ms']:.4f} ms")
     lib = library()
     report["phase1_exact"].update(resources(
         "phase1_exact", ptxas, lib.mrt_phase1_exact_smem(bb.shape[0])))
@@ -578,11 +613,12 @@ def compare_phong(name, data, pack, o, d, kind, live_i, pre, shadow):
     return rep
 
 
-def compare_segment_kernels(data, camera, report):
+def compare_segment_kernels(data, camera, report, ptxas, sass):
     """Phase 7: K5 and K6 vs their plain versions on the 1080p first
     segment, with the recorded topology."""
     import torch
 
+    from myraytracer_tpu_torch.kernels import library
     from myraytracer_tpu_torch.ops import shade, shade_grad as sg
     from myraytracer_tpu_torch.ops import tracer as tr
     from myraytracer_tpu_torch.ops.render import primary_rays_blocked
@@ -614,15 +650,19 @@ def compare_segment_kernels(data, camera, report):
         **bound(nbytes(*args[:3], *args[4:], *fwd) + tri_rows, seg_ops))
     print(f"seg_fwd: {R} rays, hits {float(args[10].float().mean()):.4f}, "
           f"max_abs_err={err}")
+    report["seg_fwd"].update(resources("seg_fwd", ptxas),
+                             **sass_counts("seg_fwd", sass))
 
     bwd = sg.segment_bwd(*args, *cots)
     bwd_p = sg.segment_bwd_plain(*args, *cots)
-    names = ("g_o", "g_d", "g_w", "g_rows", "g_light_pos", "g_light_color",
+    names = ("g_o", "g_d", "g_w", "g_pack", "g_light_pos", "g_light_color",
              "g_ambience", "g_background")
     # a recorded hit whose re-solve fails keeps its point at t = INF; with
     # a nonzero bounce cotangent its exact reverse is inf (the
     # reference's too): those entries must match, the rest within the bar
-    err, worst, n_inf = 0.0, 0.0, 0
+    # (g_pack, the row cotangents summed per triangle by atomics, within
+    # REL_GRAD)
+    err, worst, n_inf = 0.0, {}, 0
     for nm, a, b in zip(names, bwd, bwd_p):
         check(tuple(a.shape) == tuple(b.shape), f"seg_bwd.{nm}: shape")
         fin = torch.isfinite(b)
@@ -630,17 +670,53 @@ def compare_segment_kernels(data, camera, report):
               and torch.equal(a[~fin].nan_to_num(), b[~fin].nan_to_num()),
               f"seg_bwd.{nm}: non-finite entries differ")
         n_inf += int((~fin).sum())
-        worst = max(worst, close_scaled(f"seg_bwd.{nm}", a[fin], b[fin],
-                                        REL_COT))
+        bar = REL_GRAD if nm == "g_pack" else REL_COT
+        worst[bar] = max(worst.get(bar, 0.0), close_scaled(
+            f"seg_bwd.{nm}", a[fin], b[fin], bar))
         err = max(err, float((a[fin] - b[fin]).abs().max()))
+    # g_pack once more without the rays whose re-solve fails: their
+    # entries near 3e38 set max|plain| above, and hide every other row
+    far = fwd_p[1].abs().amax(1) > 1e30
+    cots_n = [torch.where(far.view((-1,) + (1,) * (c.dim() - 1)), 0.0, c)
+              for c in cots]
+    pack_k = sg.segment_bwd(*args, *cots_n)[3]
+    pack_p = sg.segment_bwd_plain(*args, *cots_n)[3]
+    worst_n = close_scaled("seg_bwd.g_pack (finite rays)", pack_k, pack_p,
+                           REL_GRAD)
+    # the same function's second half done without the row sum in the
+    # kernel: each ray's row cotangent written out, then index_add_ into
+    # tri_pack's columns
+    rows_p = sg.segment_bwd_rows_plain(*args, *cots)[3]
+    tri_pack, ti_l = args[3], ti.long()
+
+    def row_scatter():
+        g_sum = rows_p.new_zeros((tri_pack.shape[0], rows_p.shape[1]))
+        g_sum.index_add_(0, ti_l, rows_p)
+        g_pack = torch.zeros_like(tri_pack)
+        g_pack[:, 0:9] = g_sum[:, 0:9]
+        g_pack[:, 16:25] = g_sum[:, 9:18]
+        g_pack[:, 32:43] = g_sum[:, 18:29]
+
     report["seg_bwd"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: sg.segment_bwd(*args, *cots), 20),
         plain_ms=time_ms(lambda: sg.segment_bwd_plain(*args, *cots), 3),
+        index_add_ms=time_ms(row_scatter, 20),
         **bound(nbytes(*args[:3], *args[4:], *cots, *bwd) + tri_rows,
                 BWD_OVER_FWD * seg_ops))
-    print(f"seg_bwd: max_abs_err={err}, worst diff {worst:.3g} * max|plain| "
-          f"(bar {REL_COT}); {n_inf} non-finite entries, equal in both")
+    print(f"seg_bwd: max_abs_err={err}, worst diff {worst[REL_COT]:.3g} * "
+          f"max|plain| (bar {REL_COT}), g_pack {worst[REL_GRAD]:.3g} and "
+          f"without the {int(far.sum())} rays whose re-solve fails "
+          f"{worst_n:.3g} (bar {REL_GRAD}); {n_inf} non-finite entries, "
+          f"equal in both; "
+          f"{report['seg_bwd']['ms']:.4f} ms against a bound of "
+          f"{report['seg_bwd']['bound_ms']:.4f} ms; the row scatter "
+          f"without it in the kernel (index_add_ of the [R, 29] rows into "
+          f"tri_pack) "
+          f"{report['seg_bwd']['index_add_ms']:.4f} ms")
+    report["seg_bwd"].update(
+        resources("seg_bwd", ptxas, library().mrt_seg_bwd_smem(L)),
+        **sass_counts("seg_bwd", sass))
 
 
 def compare_training_paths(data, cam_small):
@@ -873,10 +949,24 @@ def walk_bound(rays, work: dict) -> dict:
     return bound(n_bytes, work["visits"] * OPS_SLAB + work["slots"] * OPS_TRI)
 
 
-def compare_walk(name, data, o, d, kw):
+def issue_slots(ms: float, warp_steps: int) -> float:
+    """Issue slots of the whole card per warp step in ``ms``: the SMs'
+    four schedulers at the card's maximum SM clock (nvidia-smi), an upper
+    bound on the instructions a warp issues per step."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ms * 1e-3 * hz * sms * 4 / max(warp_steps, 1)
+
+
+def compare_walk(name, data, o, d, kw, ptxas, sass):
     """K7 vs its plain version on one query: ids equal, t equal (both
-    without FMA contraction), times, bound. Returns the kernel's TriHit
-    and the summary entry."""
+    without FMA contraction), times, bound, lanes busy and issue slots per
+    warp step. Returns the kernel's TriHit and the summary entry."""
     import torch
 
     from myraytracer_tpu_torch.ops import traverse as trv
@@ -895,17 +985,25 @@ def compare_walk(name, data, o, d, kw):
                plain_ms=time_ms(lambda: trv.traverse_bvh_plain(data, o, d,
                                                                **kw), 1),
                **walk_bound(o.shape[0], work))
+    # the any-hit launch runs over the active rays packed in call order
+    sfx = "_compact" if kw.get("any_hit") else ""
+    busy, warp_steps = work["lanes_busy" + sfx], work["warp_steps" + sfx]
+    rep.update(lanes_busy=busy, warp_steps=warp_steps,
+               issue_slots_per_warp_step=issue_slots(rep["ms"], warp_steps))
     print(f"{name}: {o.shape[0]} rays, hits {float(both.float().mean()):.4f}, "
           f"ids equal, max_abs_err(t)={err}; {rep['ms']:.4f} ms vs plain "
           f"{rep['plain_ms']:.1f} ms; bound {rep['bound_ms']:.4f} ms "
           f"({rep['bound_by']}); work: {work['visits'] / o.shape[0]:.1f} "
           f"node steps and {work['slots'] / o.shape[0]:.2f} slot solves a "
           f"ray, {work['nodes']} nodes, {work['links']} links, "
-          f"{work['tris']} triangles read")
+          f"{work['tris']} triangles read; lanes busy {busy:.4f} (call "
+          f"order {work['lanes_busy']:.4f}) over {warp_steps} warp steps, "
+          f"{rep['issue_slots_per_warp_step']:.1f} issue slots a warp step")
+    rep.update(resources(name, ptxas), **sass_counts(name, sass))
     return hit, rep
 
 
-def compare_bvh_walk(data, camera, report):
+def compare_bvh_walk(data, camera, report, ptxas, sass):
     """Phase 13: K7 vs its plain version on the office 1080p primary rays
     and their shadow batch; K2 + K1 and K1' on the same rays."""
     import torch
@@ -915,13 +1013,19 @@ def compare_bvh_walk(data, camera, report):
     from myraytracer_tpu_torch.ops import shade, tracer as tr
     from myraytracer_tpu_torch.ops.render import primary_rays_blocked
 
+    from myraytracer_tpu_torch import kernels
+    from myraytracer_tpu_torch.ops import traverse as trv
+
+    threads = kernels.library().mrt_bvh_walk_threads()
+    check(threads == trv.WALK_BLOCK, f"K7 runs {threads} threads a block, "
+          f"traverse.WALK_BLOCK says {trv.WALK_BLOCK}")
     cfg = tr.TraceConfig(tri_method="bvh")
     pack = tr.pack_trace(data, cfg)
     o, d = primary_rays_blocked(camera, data.device)
     R = o.shape[0]
     kw = dict(tri_flat=pack.tri_flat)
     hit, report["bvh_walk_closest"] = compare_walk(
-        "bvh_walk_closest", data, o, d, kw)
+        "bvh_walk_closest", data, o, d, kw, ptxas, sass)
 
     # the shadow batch K3 emits for the walk's hits
     live = torch.ones(R, dtype=torch.bool, device=o.device)
@@ -936,7 +1040,7 @@ def compare_bvh_walk(data, camera, report):
     act = sact > 0
     akw = dict(kw, t_max=st, any_hit=True, active=act)
     occ, report["bvh_walk_anyhit"] = compare_walk(
-        "bvh_walk_anyhit", data, so, sd, akw)
+        "bvh_walk_anyhit", data, so, sd, akw, ptxas, sass)
 
     # the yardstick: the cluster scan on the same rays
     cl_rows = cc.pack_cluster_rows(data)
@@ -1121,10 +1225,11 @@ def build_gallery(dev):
     return out
 
 
-def run(ptxas: dict, dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
-        small=(480, 270), n_tris=18664) -> dict:
+def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
+        full=(1920, 1080), small=(480, 270), n_tris=18664) -> dict:
     """All phases after the build (``ptxas``: the build's per-kernel
-    resources); returns the per-kernel report."""
+    resources; ``sass``: its static SASS counts, None without cuobjdump);
+    returns the per-kernel report."""
     import torch
 
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -1178,7 +1283,7 @@ def run(ptxas: dict, dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
         check(launches[name] > 0, f"{name} was not launched by the render")
         report[name]["launches"] = launches[name]
 
-    compare_segment_kernels(data, scene.camera, report)
+    compare_segment_kernels(data, scene.camera, report, ptxas, sass)
     compare_training_paths(data, cam_small)
 
     target = 0.9 * render(data, scene.camera) + 0.02
@@ -1215,7 +1320,7 @@ def run(ptxas: dict, dev: str = "cuda:0", tess: int = 10, full=(1920, 1080),
     compare_branch_kernels(scenes, dev, report)
     gallery(scenes, dev, report)
     office_aa(data, scene.camera)
-    compare_bvh_walk(data, scene.camera, report)
+    compare_bvh_walk(data, scene.camera, report, ptxas, sass)
     office_bvh(data, scene.camera, report)
     gallery_bvh(scenes)
     train_goldens(scenes)
@@ -1249,7 +1354,12 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
-    report = run(kernels.kernel_resources(log))
+    try:
+        sass = kernels._build.kernel_sass(path)
+    except RuntimeError as e:
+        print(f"SASS not measured: {e}")
+        sass = None
+    report = run(kernels.kernel_resources(log), sass)
     entries = [(n, src, rep) for n, src, rep in KERNELS + BVH_KERNELS] + [
         (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,

@@ -15,12 +15,17 @@ Layout (module names follow the reference):
     utils/     vector math, PNG reading and writing
     kernels/   nvcc build and ctypes binding of csrc/*.cu
     csrc/      the CUDA kernels (cluster scan, phase-1, shading, shade
-               segment forward and backward)
+               segment forward and backward, BVH walk)
 
-Ported so far: the forward render with adaptive supersampling of every
-primitive kind (triangles, spheres, planes, cylinders) and of textured
-meshes, and the training step (loss and scene-parameter gradients) of
-triangle-only, untextured scenes.
+Ported so far: the forward render with adaptive supersampling and the
+training step (loss and scene-parameter gradients), both over every
+primitive kind (triangles, spheres, planes, cylinders) and textured
+meshes, through any of the three triangle methods (the cluster scan, the
+BVH walk, the brute-force oracle). The entry points take the reference's
+argument order: ``render(scene, camera, cfg, tile, clamp)``,
+``render_aa(scene, camera, cfg, tile, ...)``,
+``render_loss_grad(scene, o, d, target, cfg, tile)`` and
+``render_loss_grad_image(scene, camera, target, cfg, tile)``.
 """
 
 __version__ = "0.1.0"

@@ -15,10 +15,19 @@
 // i32, corner rows [T, 16] f32; 2.35 MB for office tess 10) stay resident
 // in the 50 MB L2, so the walk moves few HBM bytes and does little
 // arithmetic per step; its time is the chain of dependent loads of each
-// ray and the divergence of the rays of a warp. Design: one thread per
-// ray and a stackless walk (no lockstep loop, no unroll), per-ray state in
-// registers, every table read through the read-only path (__ldg) as
-// 16-byte rows: a node is two float4 loads, a triangle three.
+// ray and the instructions of each step. Design: one thread per ray and a
+// stackless walk, per-ray state in registers, every table read through
+// the read-only path (__ldg) as 16-byte rows: a node is two float4 loads,
+// a triangle three. A step issues its node and link loads together (both
+// depend on the pointer alone), so it waits for one load, not two. A ray
+// with finite o and finite nonzero 1/d tests a box whose corners are
+// ordered (lo <= hi, so no NaN) with plain FMNMX: no product can be NaN
+// there, and fminf/fmaxf then equal nmin/nmax up to the sign of a zero,
+// which the comparisons that read tmin and tmax do not see. Every other
+// ray or box takes the NaN-propagating slab(). In the any-hit launch each
+// block first compacts its active rays, in call order, into its first
+// threads (ballots and one barrier; ops/traverse.py compact_active is the
+// plain form), so they fill whole warps and the rest of the block exits.
 //
 // Built without FMA contraction (kernels/_build.py NO_FMA) and without
 // fast math: the slab test keeps torch.minimum's NaN propagation (nmin,
@@ -61,33 +70,82 @@ __device__ __forceinline__ float tri_t(float ox, float oy, float oz, float dx,
   return (ok && (t > MRT_EPS_HIT) && inside) ? t : MRT_INF;
 }
 
-__global__ void bvh_walk_kernel(const float* __restrict__ o,
-                                const float* __restrict__ d, int ws,
-                                const float* __restrict__ t0,
-                                const int* __restrict__ act,
-                                const float4* __restrict__ nodes,
-                                const int2* __restrict__ links,
-                                const float4* __restrict__ tris,
-                                float* __restrict__ t_out,
-                                int* __restrict__ idx_out, int R, int N,
-                                int any_hit) {
-  const long r = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+constexpr int kWalkThreads = 128;
+
+__device__ __forceinline__ bool finite3(float a, float b, float c) {
+  return isfinite(a) && isfinite(b) && isfinite(c);
+}
+
+// kAnyHit: ends a ray after the step that found its first hit, and
+// walks the block's active rays compacted into its first threads (an
+// inactive ray gets its miss written at once).
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kWalkThreads) bvh_walk_kernel(
+    const float* __restrict__ o, const float* __restrict__ d, int ws,
+    const float* __restrict__ t0, const int* __restrict__ act,
+    const float4* __restrict__ nodes, const int2* __restrict__ links,
+    const float4* __restrict__ tris, float* __restrict__ t_out,
+    int* __restrict__ idx_out, int R, int N) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  long r = i;
+  int ptr;
+  if (kAnyHit) {
+    __shared__ int s_ray[kWalkThreads];
+    __shared__ int s_warp[kWalkThreads / 32];
+    const bool live = i < R && act[i] > 0;
+    if (i < R && !live) {
+      t_out[i] = MRT_INF;
+      idx_out[i] = -1;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) s_warp[warp] = __popc(m);
+    __syncthreads();
+    int base = 0, n = 0;
+#pragma unroll
+    for (int k = 0; k < kWalkThreads / 32; ++k) {
+      base += k < warp ? s_warp[k] : 0;
+      n += s_warp[k];
+    }
+    if (live) s_ray[base + __popc(m & ((1u << lane) - 1u))] = i;
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) >= n) return;
+    r = s_ray[threadIdx.x];
+    ptr = 0;
+  } else {
+    if (i >= R) return;
+    ptr = act[r] > 0 ? 0 : -1;
+  }
   const float ox = o[r * ws], oy = o[r * ws + 1], oz = o[r * ws + 2];
   const float dx = d[r * ws], dy = d[r * ws + 1], dz = d[r * ws + 2];
   const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
   const int octant = (dx < 0.0f) + 2 * (dy < 0.0f) + 4 * (dz < 0.0f);
   const int2* lk = links + static_cast<long>(octant) * N;
+  const bool clean = finite3(ox, oy, oz) && finite3(ivx, ivy, ivz) &&
+                     ivx != 0.0f && ivy != 0.0f && ivz != 0.0f;
 
   float tb = t0[r];
   int ib = -1;
-  int ptr = act[r] > 0 ? 0 : -1;
   while (ptr >= 0) {
     const float4 a = __ldg(nodes + 2 * static_cast<long>(ptr));
     const float4 b = __ldg(nodes + 2 * static_cast<long>(ptr) + 1);
-    const float bb[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+    const int2 l = __ldg(lk + ptr);
+    // a = lo.x lo.y lo.z hi.x, b = hi.y hi.z first count
     float tmin;
-    const bool box = slab(ox, oy, oz, ivx, ivy, ivz, bb, &tmin) && (tmin <= tb);
+    bool hit;
+    if (clean && a.x <= a.w && a.y <= b.x && a.z <= b.y) {
+      const float x0 = (a.x - ox) * ivx, x1 = (a.w - ox) * ivx;
+      const float y0 = (a.y - oy) * ivy, y1 = (b.x - oy) * ivy;
+      const float z0 = (a.z - oz) * ivz, z1 = (b.y - oz) * ivz;
+      tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
+      const float tmax =
+          fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
+      hit = (tmax >= tmin) && (tmax > MRT_EPS_HIT);
+    } else {
+      const float bb[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+      hit = slab(ox, oy, oz, ivx, ivy, ivz, bb, &tmin);
+    }
+    const bool box = hit && (tmin <= tb);
     const int first = __float_as_int(b.z);
     const int count = __float_as_int(b.w);
     if (box && count > 0) {
@@ -101,9 +159,8 @@ __global__ void bvh_walk_kernel(const float* __restrict__ o,
         }
       }
     }
-    const int2 l = __ldg(lk + ptr);
     ptr = (box && count == 0) ? l.x : l.y;
-    if (any_hit && ib >= 0) break;
+    if (kAnyHit && ib >= 0) break;
   }
   t_out[r] = ib >= 0 ? tb : MRT_INF;
   idx_out[r] = ib;
@@ -119,13 +176,16 @@ extern "C" int mrt_bvh_walk(const void* o, const void* d, const void* t0,
                             void* idx_out, int R, int ws, int N, int any_hit,
                             void* stream) {
   if (R == 0) return static_cast<int>(cudaSuccess);
-  const int threads = 128;
-  const int blocks = (R + threads - 1) / threads;
-  bvh_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (R + kWalkThreads - 1) / kWalkThreads;
+  auto kernel = any_hit ? bvh_walk_kernel<true> : bvh_walk_kernel<false>;
+  kernel<<<blocks, kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d), ws,
       static_cast<const float*>(t0), static_cast<const int*>(act),
       static_cast<const float4*>(nodes), static_cast<const int2*>(links),
       static_cast<const float4*>(tris), static_cast<float*>(t_out),
-      static_cast<int*>(idx_out), R, N, any_hit);
+      static_cast<int*>(idx_out), R, N);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K7's block size, which ops/traverse.py WALK_BLOCK must equal
+extern "C" int mrt_bvh_walk_threads() { return kWalkThreads; }

@@ -82,6 +82,7 @@ _SIGNATURES = {
 _SMEM_SIZES = {
     "mrt_phase1_exact_smem": [_I],
     "mrt_cluster_scan_smem": [_I],
+    "mrt_seg_bwd_smem": [_I],
 }
 
 _lib = None
@@ -177,6 +178,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_size_t
+        lib.mrt_bvh_walk_threads.argtypes = []
+        lib.mrt_bvh_walk_threads.restype = ctypes.c_int
         lib.mrt_error_string.argtypes = [ctypes.c_int]
         lib.mrt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -220,21 +223,26 @@ def check_inputs(name: str, device: torch.device, widths=None,
 
 def kernel_resources(log: str) -> dict:
     """Per-kernel resources from ptxas's ``-v`` report in the build log:
-    mangled entry name -> {"registers", "smem_static" (bytes), "spill_stores"
-    (bytes)}. Dynamic shared memory is set at launch (``_SMEM_SIZES``)."""
+    mangled entry name -> {"registers", "smem_static" (bytes), "spill_stores",
+    "spill_loads", "stack_frame" (bytes)}. Dynamic shared memory is set at
+    launch (``_SMEM_SIZES``)."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
             out[entry] = {"registers": None, "smem_static": 0,
-                          "spill_stores": 0}
+                          "spill_stores": 0, "spill_loads": 0,
+                          "stack_frame": 0}
             continue
         if entry is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            out[entry]["spill_stores"] = int(m.group(1))
+        for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("stack_frame", r"(\d+) bytes stack frame")):
+            m = re.search(pat, line)
+            if m:
+                out[entry][key] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[entry]["registers"] = int(m.group(1))
@@ -242,4 +250,59 @@ def kernel_resources(log: str) -> dict:
             if m:
                 out[entry]["smem_static"] = int(m.group(1))
             entry = None
+    return out
+
+
+def sass(path: Path) -> str:
+    """The SASS of the built library, as ``cuobjdump -sass`` prints it.
+    Raises RuntimeError when cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found")
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def kernel_sass(path: Path) -> dict:
+    """Static counts from the SASS of the built library (:func:`sass`):
+    mangled entry name -> {"instructions", "ldl", "stl" (local-memory
+    loads and stores: spills and stack arrays), "atomics" (ATOM, RED),
+    "loops": [instructions of each loop body, from a backward branch's
+    target to the branch, in address order]}.
+
+    Raises RuntimeError when cuobjdump is missing.
+    """
+    text = sass(path)
+    out, fn, code = {}, None, []
+
+    def close():
+        if fn is None:
+            return
+        ops = [op for _, op in code]
+        addr = [a for a, _ in code]
+        loops = []
+        for i, (a, op) in enumerate(code):
+            m = re.search(r"\bBRA(?:\.\S+)?\s+(?:\S+,\s*)?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) <= a:
+                start = int(m.group(1), 16)
+                loops.append(sum(1 for x in addr[:i + 1] if x >= start))
+        out[fn] = {
+            "instructions": len(ops),
+            "ldl": sum(1 for op in ops if re.search(r"\bLDL\b", op)),
+            "stl": sum(1 for op in ops if re.search(r"\bSTL\b", op)),
+            "atomics": sum(1 for op in ops
+                           if re.search(r"\b(ATOM|ATOMG|RED|REDG)\b", op)),
+            "loops": loops}
+
+    for line in text.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            close()
+            fn, code = m.group(1), []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if fn is not None and m and not m.group(2).strip().startswith("NOP"):
+            op = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+            code.append((int(m.group(1), 16), op))
+    close()
     return out

@@ -104,13 +104,14 @@ def primary_rays_blocked(camera: Camera, device, block: int = BLOCK):
     return o.contiguous(), d.contiguous()
 
 
-def render(scene, camera: Camera, tile: Optional[int] = None,
-           cfg: tr.TraceConfig = tr.TraceConfig()) -> torch.Tensor:
+def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
+           tile: Optional[int] = None, clamp: bool = True) -> torch.Tensor:
     """Primary 1-spp render -> [H, W, 3] on the scene's device.
 
-    Colors are clamped to <= 1 per pixel like the reference kernel.
-    ``tile`` (rays, rounded down to whole screen blocks) traces the frame
-    in batches; None traces it in one.
+    Colors are clamped to <= 1 per pixel like the reference kernel unless
+    ``clamp=False``, which returns the unclamped linear image. ``tile``
+    (rays, rounded down to whole screen blocks) traces the frame in
+    batches; None traces it in one.
     """
     H, W = camera.height, camera.width
     b = BLOCK
@@ -123,7 +124,7 @@ def render(scene, camera: Camera, tile: Optional[int] = None,
     img = (color.reshape(Hp // b, Wp // b, b, b, 3)
            .permute(0, 2, 1, 3, 4)
            .reshape(Hp, Wp, 3)[:H, :W])
-    return torch.clamp(img, max=1.0)
+    return torch.clamp(img, max=1.0) if clamp else img
 
 
 def _deviation(img: torch.Tensor) -> torch.Tensor:
@@ -198,8 +199,9 @@ def _aa_apply(camera: Camera, img1, top_idx, sel, colors, subp: int):
     return flat.reshape(H, W, 3)
 
 
-def _aa_refine(scene, camera: Camera, img1, tile: Optional[int] = None,
-               cfg: tr.TraceConfig = tr.TraceConfig(), subp: int = AA_SUBP,
+def _aa_refine(scene, camera: Camera, img1,
+               cfg: tr.TraceConfig = tr.TraceConfig(),
+               tile: Optional[int] = None, subp: int = AA_SUBP,
                threshold: float = AA_THRESHOLD, budget_frac: float = 0.10
                ) -> torch.Tensor:
     """The adaptive-supersampling pass over a finished pass-1 image."""
@@ -211,8 +213,8 @@ def _aa_refine(scene, camera: Camera, img1, tile: Optional[int] = None,
     return _aa_apply(camera, img1, top_idx, sel, colors, subp)
 
 
-def render_aa(scene, camera: Camera, tile: Optional[int] = None,
-              cfg: tr.TraceConfig = tr.TraceConfig(), subp: int = AA_SUBP,
+def render_aa(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
+              tile: Optional[int] = None, subp: int = AA_SUBP,
               threshold: float = AA_THRESHOLD, budget_frac: float = 0.10
               ) -> torch.Tensor:
     """Render + adaptive supersampling -> [H, W, 3] in [0, 1].
@@ -222,8 +224,8 @@ def render_aa(scene, camera: Camera, tile: Optional[int] = None,
     first) keep their pass-1 colour. ``tile`` (rays) bounds each pass's
     trace batch; None traces each pass in one.
     """
-    img1 = render(scene, camera, tile, cfg)
-    return _aa_refine(scene, camera, img1, tile, cfg, subp, threshold,
+    img1 = render(scene, camera, cfg, tile)
+    return _aa_refine(scene, camera, img1, cfg, tile, subp, threshold,
                       budget_frac)
 
 
@@ -311,8 +313,9 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
 
 
 def render_loss_grad(scene, o: torch.Tensor, d: torch.Tensor,
-                     target: torch.Tensor, tile: Optional[int] = None,
-                     cfg: tr.TraceConfig = tr.TraceConfig()):
+                     target: torch.Tensor,
+                     cfg: tr.TraceConfig = tr.TraceConfig(),
+                     tile: Optional[int] = None):
     """SSE loss + scene-parameter grads for a flat ray batch.
 
     o, d, target [R, 3]. Returns (loss, grads), grads keyed like
@@ -327,8 +330,8 @@ def render_loss_grad(scene, o: torch.Tensor, d: torch.Tensor,
 
 
 def render_loss_grad_image(scene, camera: Camera, target: torch.Tensor,
-                           tile: Optional[int] = None,
-                           cfg: tr.TraceConfig = tr.TraceConfig()):
+                           cfg: tr.TraceConfig = tr.TraceConfig(),
+                           tile: Optional[int] = None):
     """Whole-image SSE loss + scene-parameter grads: the training step.
 
     ``target`` [H, W, 3] on the scene's device. Rays and target pixels

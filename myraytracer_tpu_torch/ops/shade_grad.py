@@ -11,14 +11,15 @@ version written over component columns like the reference's cores:
 
   K5  :func:`segment_fwd`  (plain :func:`segment_plain`) the forward;
   K6  :func:`segment_bwd`  (plain :func:`segment_bwd_plain`) the
-      hand-derived reverse, which recomputes the forward first.
+      hand-derived reverse, which recomputes the forward first and sums
+      the per-ray ``tri_pack`` row cotangents (``_GRAD_COLS``) into the
+      ``tri_pack`` cotangent itself, the reference's ``.at[ti].add``.
+      :func:`segment_bwd_rows_plain` gives the per-ray rows.
 
 :class:`ShadeSegment` binds them as a ``torch.autograd.Function``. Its
 residuals are its inputs (the shared ``tri_pack`` table plus per-ray
-columns), so the replay needs no checkpoint. The per-ray ``tri_pack`` row
-cotangents ([R, 29], ``_GRAD_COLS``) are summed into a [T, 48] table with
-``index_add_`` outside the kernel. Each wrapper runs its plain version
-for CPU tensors and launches its kernel for CUDA tensors.
+columns), so the replay needs no checkpoint. Each wrapper runs its plain
+version for CPU tensors and launches its kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -393,10 +394,12 @@ def segment_plain(o, d, w, tri_pack, tri_idx, light_pos, light_color,
             torch.stack(d2, dim=1), w2)
 
 
-def segment_bwd_plain(o, d, w, tri_pack, tri_idx, light_pos, light_color,
-                      ambience, background, is_t, h, miss, lit,
-                      g_add, g_o2, g_d2, g_w2):
-    """Plain version of K6; arguments and results as :func:`segment_bwd`."""
+def segment_bwd_rows_plain(o, d, w, tri_pack, tri_idx, light_pos,
+                           light_color, ambience, background, is_t, h, miss,
+                           lit, g_add, g_o2, g_d2, g_w2):
+    """K6's reverse before the row sum: arguments and results as
+    :func:`segment_bwd`, with g_rows [R, 29], each ray's ``tri_pack`` row
+    cotangent in ``_GRAD_COLS`` order, in place of g_pack."""
     g_o, g_d, g_w, gc, g_lp, g_lc, g_amb, g_bg = _bwd_core(
         *_core_args(o, d, w, tri_pack, tri_idx, light_pos, light_color,
                     ambience, background, is_t, h, miss, lit),
@@ -413,6 +416,23 @@ def segment_bwd_plain(o, d, w, tri_pack, tri_idx, light_pos, light_color,
             total(g_lp), total(g_lc),
             torch.stack([x.sum() for x in g_amb]),
             torch.stack([x.sum() for x in g_bg]))
+
+
+def segment_bwd_plain(o, d, w, tri_pack, tri_idx, light_pos, light_color,
+                      ambience, background, is_t, h, miss, lit,
+                      g_add, g_o2, g_d2, g_w2):
+    """Plain version of K6; arguments and results as :func:`segment_bwd`:
+    the per-ray rows, then ``index_add_`` into the ``_GRAD_COLS``
+    columns."""
+    g_o, g_d, g_w, g_rows, *env = segment_bwd_rows_plain(
+        o, d, w, tri_pack, tri_idx, light_pos, light_color, ambience,
+        background, is_t, h, miss, lit, g_add, g_o2, g_d2, g_w2)
+    g_pack = torch.zeros_like(tri_pack)
+    # _GRAD_COLS is three runs of columns; slices keep the index on the
+    # host (a list index would be copied to the device)
+    for a, b, k in ((0, 9, 0), (16, 25, 9), (32, 43, 18)):
+        g_pack[:, a:b].index_add_(0, tri_idx.long(), g_rows[:, k:k + b - a])
+    return (g_o, g_d, g_w, g_pack, *env)
 
 
 #: argument names of the wrappers, then the backward's cotangents, with
@@ -486,11 +506,12 @@ def segment_bwd(o, d, w, tri_pack, tri_idx, light_pos, light_color,
 
     Arguments as :func:`segment_fwd`, plus the output cotangents g_add,
     g_o2, g_d2 [R, 3] and g_w2 [R] f32. Returns (g_o [R, 3], g_d [R, 3],
-    g_w [R], g_rows [R, 29] the tri_pack row cotangents in ``_GRAD_COLS``
-    order, g_light_pos [L, 3], g_light_color [L, 3], g_ambience [3],
-    g_background [3]); the last four are summed over the rays (in the
-    kernel by block reductions and atomics, so their order of summation
-    varies from run to run).
+    g_w [R], g_pack [T, 48] the ``tri_pack`` cotangent (each ray's row
+    cotangent summed into its triangle's ``_GRAD_COLS`` columns, zero
+    elsewhere), g_light_pos [L, 3], g_light_color [L, 3], g_ambience [3],
+    g_background [3]); g_pack and the last four are sums over the rays
+    (in the kernel by warp and block reductions and atomics, so their
+    order of summation varies from run to run).
     """
     if o.device.type == "cpu":
         return segment_bwd_plain(o, d, w, tri_pack, tri_idx, light_pos,
@@ -504,7 +525,7 @@ def segment_bwd(o, d, w, tri_pack, tri_idx, light_pos, light_color,
     g_o = torch.empty((R, 3), **f32)
     g_d = torch.empty((R, 3), **f32)
     g_w = torch.empty(R, **f32)
-    g_rows = torch.empty((R, len(_GRAD_COLS)), **f32)
+    g_pack = torch.zeros_like(tri_pack)
     # g_light_pos | g_light_color | g_ambience | g_background
     g_env = torch.zeros(6 * L + 6, **f32)
     if R:
@@ -515,9 +536,9 @@ def segment_bwd(o, d, w, tri_pack, tri_idx, light_pos, light_color,
             lit.data_ptr(), light_pos.data_ptr(), light_color.data_ptr(),
             ambience.data_ptr(), background.data_ptr(), g_add.data_ptr(),
             g_o2.data_ptr(), g_d2.data_ptr(), g_w2.data_ptr(), L, R,
-            g_o.data_ptr(), g_d.data_ptr(), g_w.data_ptr(), g_rows.data_ptr(),
+            g_o.data_ptr(), g_d.data_ptr(), g_w.data_ptr(), g_pack.data_ptr(),
             g_env.data_ptr())
-    return (g_o, g_d, g_w, g_rows, g_env[:3 * L].view(L, 3),
+    return (g_o, g_d, g_w, g_pack, g_env[:3 * L].view(L, 3),
             g_env[3 * L:6 * L].view(L, 3), g_env[6 * L:6 * L + 3],
             g_env[6 * L + 3:])
 
@@ -547,19 +568,9 @@ class ShadeSegment(torch.autograd.Function):
     def backward(ctx, g_add, g_o2, g_d2, g_w2):
         args = ctx.saved_tensors
         bwd = segment_bwd_plain if ctx.plain else segment_bwd
-        g_o, g_d, g_w, g_rows, g_lp, g_lc, g_amb, g_bg = bwd(
+        g_o, g_d, g_w, g_pack, g_lp, g_lc, g_amb, g_bg = bwd(
             *args, g_add.contiguous(), g_o2.contiguous(), g_d2.contiguous(),
             g_w2.contiguous())
-        tri_pack, tri_idx = args[3], args[4]
-        # the reference's .at[ti].add: rows of one triangle sum up
-        g_sum = g_rows.new_zeros((tri_pack.shape[0], len(_GRAD_COLS)))
-        g_sum.index_add_(0, tri_idx.long(), g_rows)
-        g_pack = torch.zeros_like(tri_pack)
-        # _GRAD_COLS is three runs of columns; slices keep the index on
-        # the host (a list index would be copied to the device)
-        g_pack[:, 0:9] = g_sum[:, 0:9]
-        g_pack[:, 16:25] = g_sum[:, 9:18]
-        g_pack[:, 32:43] = g_sum[:, 18:29]
         return (g_o, g_d, g_w, g_pack, None, g_lp, g_lc, g_amb, g_bg,
                 None, None, None, None, None)
 

@@ -58,6 +58,17 @@ def _start(R: int, t_max, active, device):
     return t0, ptr
 
 
+def _lanes_busy(steps):
+    """(node steps over 32 x the sum of each 32-ray group's largest step
+    count, that sum) of per-ray step counts in launch order."""
+    n = steps.numel()
+    if n == 0:
+        return 0.0, 0
+    groups = torch.nn.functional.pad(steps, (0, -n % 32)).view(-1, 32)
+    warp_steps = int(groups.max(dim=1).values.sum())
+    return int(steps.sum()) / max(32 * warp_steps, 1), warp_steps
+
+
 def traverse_bvh_plain(scene, o, d, t_max=None, any_hit: bool = False,
                        active=None, tri_flat=None,
                        stats: Optional[dict] = None) -> TriHit:
@@ -74,7 +85,12 @@ def traverse_bvh_plain(scene, o, d, t_max=None, any_hit: bool = False,
     for K7: when given, it gets the work these inputs need. ``visits``:
     node steps; ``slots``: triangle solves (slot k < count of each leaf
     hit); ``nodes``, ``links``, ``tris``: the numbers of distinct node,
-    link and corner rows read.
+    link and corner rows read; ``warp_steps`` and ``lanes_busy``: over
+    the 32-ray groups in call order (one warp each in K7), the sum of
+    the groups' largest step counts, and the node steps over 32 times
+    that; ``warp_steps_compact`` and ``lanes_busy_compact``: the same
+    with each block's active rays packed first (K7's any-hit launch,
+    :func:`compact_active`).
     """
     R, dev = o.shape[0], o.device
     if scene.n_tris == 0:
@@ -99,6 +115,7 @@ def traverse_bvh_plain(scene, o, d, t_max=None, any_hit: bool = False,
                 "links": torch.zeros(8 * N, dtype=torch.bool, device=dev),
                 "tris": torch.zeros(T, dtype=torch.bool, device=dev)}
         visits = slots = 0
+        steps = torch.zeros(R, dtype=torch.int64, device=dev)
 
     ids = torch.nonzero(ptr >= 0)[:, 0]
     while ids.numel():
@@ -136,22 +153,47 @@ def traverse_bvh_plain(scene, o, d, t_max=None, any_hit: bool = False,
             nxt = torch.where(ib >= 0, -1, nxt)
         if stats is not None:
             visits += ids.numel()
+            steps[ids] += 1
             seen["nodes"][p] = True
             seen["links"][lrow] = True
         t[ids], idx[ids], ptr[ids] = tb, ib, nxt
         ids = ids[nxt >= 0]
     if stats is not None:
+        live = _start(R, None, active, dev)[1] >= 0
+        packed = steps[compact_active(live)]
         stats.update({k: int(v.sum()) for k, v in seen.items()},
                      visits=visits, slots=slots)
+        stats["lanes_busy"], stats["warp_steps"] = _lanes_busy(steps)
+        stats["lanes_busy_compact"], stats["warp_steps_compact"] = \
+            _lanes_busy(packed)
     return TriHit(idx, torch.where(idx >= 0, t, torch.full_like(t, INF)))
+
+
+#: rays per block of K7: csrc/bvh_walk.cu kWalkThreads, which the built
+#: library reports as mrt_bvh_walk_threads() (chip_smoke.py and the on-card
+#: tests check that the two agree)
+WALK_BLOCK = 128
+
+
+def compact_active(active):
+    """The order in which K7's any-hit launch walks the rays: within each
+    block of ``WALK_BLOCK`` consecutive rays, the active ones first, in
+    call order, then the inactive ones (which the kernel does not walk) ->
+    order [R] i64. The kernel compacts each block in shared memory; this
+    is its plain form."""
+    ids = torch.arange(active.shape[0], device=active.device)
+    return torch.argsort((ids // WALK_BLOCK) * 2 + (~active).long(),
+                         stable=True)
 
 
 def bvh_walk(o, d, t0, act, nodes, links, tri_flat, any_hit: bool):
     """K7 on CUDA tensors -> (t [R] f32, idx [R] i32).
 
     o, d [R, 3] or [R, 4] f32 (xyz first); t0 [R] f32; act [R] i32;
-    nodes [N, 8] f32; links [8N, 2] i32; tri_flat [T, 16] f32. Raises
-    ValueError for tensors the kernel does not take.
+    nodes [N, 8] f32; links [8N, 2] i32; tri_flat [T, 16] f32. The
+    any-hit launch walks each block's active rays compacted as
+    :func:`compact_active` orders them. Raises ValueError for tensors the
+    kernel does not take.
     """
     dev = o.device
     widths = {"o_f": o.shape[1], "d_f": o.shape[1], "nodes_f": 8,

@@ -47,6 +47,7 @@ from myraytracer_tpu.scenes import golden as rgolden
 from myraytracer_tpu_torch.ops import render as prender
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.ops import traverse as trv
+from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.scenes import golden
 
 from test_bvh import _scene_with_tris, random_tris
@@ -288,3 +289,73 @@ def test_loss_grad_bvh_matches_reference():
     for k, want in r_grads.items():
         _scaled_close(grads[k].numpy(), np.asarray(want), GRAD_REL, k)
     assert np.abs(np.asarray(r_grads["vertex_pos"])).max() > 0
+
+
+def test_walk_stats_count_lanes_busy():
+    """Hand-counted lanes busy: two triangles far apart under a root box
+    (leaf size 1: a root and two leaves). A ray inside the root's box
+    takes three steps (root, both leaves), a ray outside it one. Rays
+    0-15 run inside, 16-39 outside; with rays 16-31 inactive, the call
+    order's two warps hold 16 x 3 + 8 x 1 = 56 steps under warp maxima
+    3 + 1, and the 24 active rays packed into one warp 56 under 3."""
+    from myraytracer_tpu_torch.models.material import Material
+    from myraytracer_tpu_torch.models.mesh import FLAT, TriangleMesh
+    from myraytracer_tpu_torch.models.scene import Scene
+
+    tri = np.float32([[[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+                      [[10, 0, 0], [11, 0, 0], [10, 1, 0]]])
+    s = Scene()
+    s.add_mesh(TriangleMesh(tri.reshape(-1, 3), np.arange(6).reshape(2, 3),
+                            material=Material(), draw_mode=FLAT))
+    port = s.build(device="cpu", leaf_size=1)
+    assert port.bvh_nodes_packed.shape[0] == 3
+    R = 40
+    o = np.tile(np.float32([[50.0, 0.25, 5.0]]), (R, 1))
+    o[:16, 0] = 0.25
+    d = np.tile(np.float32([[0.0, 0.0, -1.0]]), (R, 1))
+    stats = {}
+    hit = trv.traverse_bvh_plain(port, torch.from_numpy(o),
+                                 torch.from_numpy(d), stats=stats)
+    assert (hit.idx[:16] == 0).all() and (hit.idx[16:] == -1).all()
+    assert stats["visits"] == 16 * 3 + 24
+    assert stats["warp_steps"] == 3 + 1
+    assert stats["lanes_busy"] == (16 * 3 + 24) / (32 * 4)
+    active = torch.ones(R, dtype=torch.bool)
+    active[16:32] = False
+    stats = {}
+    trv.traverse_bvh_plain(port, torch.from_numpy(o), torch.from_numpy(d),
+                           active=active, stats=stats)
+    assert stats["visits"] == 56
+    assert (stats["warp_steps"], stats["lanes_busy"]) == (4, 56 / (32 * 4))
+    assert stats["warp_steps_compact"] == 3
+    assert stats["lanes_busy_compact"] == 56 / (32 * 3)
+
+
+def test_compacted_any_hit_walk_equals_the_walk():
+    """K7's any-hit launch walks each block's active rays packed into the
+    block's first threads, in call order, and writes each result back to
+    its ray (ops/traverse.compact_active is the order): the plain walk
+    over the rays in that order, scattered back, equals the plain walk
+    with the mask."""
+    _, port, o, d, active, rng = _walk_case(25)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    act = torch.from_numpy(active)
+    R, B = o.shape[0], trv.WALK_BLOCK
+    t_max = torch.from_numpy(rng.uniform(0.5, 30.0, R).astype(np.float32))
+    want = trv.traverse_bvh_plain(port, o, d, t_max=t_max, any_hit=True,
+                                  active=act)
+    order = trv.compact_active(act)
+    assert torch.equal(torch.sort(order).values, torch.arange(R))
+    for b in range(0, R, B):
+        blk = order[b:b + B]
+        n = int(act[b:b + B].sum())
+        assert bool((blk // B == b // B).all())
+        assert torch.equal(blk[:n], b + torch.nonzero(act[b:b + B])[:, 0])
+    ids = order[act[order]]
+    part = trv.traverse_bvh_plain(port, o[ids], d[ids], t_max=t_max[ids],
+                                  any_hit=True)
+    idx = torch.full_like(want.idx, -1)
+    t = torch.full_like(want.t, INF)
+    idx[ids], t[ids] = part.idx, part.t
+    assert torch.equal(idx, want.idx) and torch.equal(t, want.t)
+    assert bool((want.idx >= 0).any()) and bool((want.idx[~act] == -1).all())

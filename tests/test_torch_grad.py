@@ -178,8 +178,11 @@ def test_segment_plain_matches_reference(name, n_lights):
 
 @pytest.mark.parametrize("name,n_lights", SEGMENT_CASES)
 def test_segment_bwd_plain_matches_reference_and_autograd(name, n_lights):
+    """The per-ray reverse (rows in _GRAD_COLS order) against the
+    reference's segment_bwd_ref, and the whole of K6's plain version
+    (rows summed into the tri_pack cotangent) against autograd."""
     args, cots = _segment_case(name, n_lights, seed=4)
-    got = sg.segment_bwd_plain(*args, *cots)
+    got = sg.segment_bwd_rows_plain(*args, *cots)
     want = rsg.segment_bwd_ref(*_ref_args(args),
                                *(jnp.asarray(c.numpy()) for c in cots))
     names = ("o", "d", "w", "rows", "light_pos", "light_color", "ambience",
@@ -191,7 +194,7 @@ def test_segment_bwd_plain_matches_reference_and_autograd(name, n_lights):
         _scaled_close(a.numpy(), b, COT_REL, f"{nm} vs the reference")
 
     # the port's own check: torch.autograd of the forward, through
-    # ShadeSegment (hand VJP + index_add_ into tri_pack) and without it
+    # ShadeSegment (hand VJP with the row sum into tri_pack) and without it
     diff_at = (0, 1, 2, 3, 5, 6, 7, 8)
     grads = []
     for hand in (True, False):
@@ -203,6 +206,37 @@ def test_segment_bwd_plain_matches_reference_and_autograd(name, n_lights):
         grads.append(torch.autograd.grad(loss, [leaves[i] for i in diff_at]))
     for nm, a, b in zip(("o", "d", "w", "tri_pack") + names[4:], *grads):
         _scaled_close(a.numpy(), b.numpy(), COT_REL, f"{nm} vs autograd")
+
+
+@pytest.mark.parametrize("name,n_lights", SEGMENT_CASES)
+def test_segment_bwd_plain_g_pack_matches_reference_scatter(name, n_lights):
+    """K6's plain version returns the tri_pack cotangent itself: the
+    reference's jnp.zeros_like(tri_pack).at[ti].add(rows) within
+    5e-4 * max|a| (the bar of the summed gradients), zero off the
+    _GRAD_COLS columns, and torch.autograd of segment_plain with respect
+    to tri_pack; its other outputs equal the per-ray version's."""
+    args, cots = _segment_case(name, n_lights, seed=5)
+    got = sg.segment_bwd_plain(*args, *cots)
+    rows = sg.segment_bwd_rows_plain(*args, *cots)
+    want_rows = rsg.segment_bwd_ref(*_ref_args(args),
+                                    *(jnp.asarray(c.numpy()) for c in cots))[3]
+    tri_pack, ti = args[3], args[4]
+    want = jnp.zeros_like(jnp.asarray(tri_pack.numpy())).at[
+        jnp.asarray(ti.numpy())].add(want_rows)
+    g_pack = got[3]
+    assert g_pack.shape == tri_pack.shape
+    _scaled_close(g_pack.numpy(), np.asarray(want), GRAD_REL,
+                  "g_pack vs the reference's scatter")
+    off = [c for c in range(tri_pack.shape[1]) if c not in sg._GRAD_COLS]
+    assert not g_pack[:, off].any()
+    assert int((g_pack.abs().sum(1) > 0).sum()) > 10
+    for i in (0, 1, 2, 4, 5, 6, 7):
+        assert torch.equal(got[i], rows[i])
+    leaves = [a.clone().requires_grad_(True) if i == 3 else a
+              for i, a in enumerate(args)]
+    loss = sum((x * c).sum() for x, c in zip(sg.segment_plain(*leaves), cots))
+    ad, = torch.autograd.grad(loss, [leaves[3]])
+    _scaled_close(g_pack.numpy(), ad.numpy(), GRAD_REL, "g_pack vs autograd")
 
 
 def test_segment_bwd_stays_finite_when_the_resolve_fails():

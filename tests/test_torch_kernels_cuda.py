@@ -14,11 +14,13 @@ is built with contraction: hit ids and occlusion agree on >= 99.5% of
 rays, t within rtol 5e-5 where the ids agree (the reference's bars; on
 the edge batches plus 2^-22 of the solve's rounding scale, where origins
 near a triangle's plane make its numerator cancel). The
-shade-segment backward (K6) sums its light and env cotangents with
-atomics, and index_add_ sums the row cotangents per triangle, both in a
+shade-segment backward (K6) sums its light and env cotangents, and each
+triangle's row cotangents into the tri_pack cotangent, with atomics in a
 run-dependent order: cotangents within 3e-5 * max|plain| (the
-reference's bar for its hand-derived VJP). The BVH walk (K7, built
-without contraction) equals its plain version: ids and t to the bit.
+reference's bar for its hand-derived VJP), the tri_pack cotangent within
+5e-4 * max|plain| (its bar for gradients summed over many rays). The BVH
+walk (K7, built without contraction) equals its plain version: ids and t
+to the bit.
 """
 
 import numpy as np
@@ -353,9 +355,10 @@ def test_shading_wrappers_reject_bad_tables(cuda):
                        data.light_pos, data.light_color, pack.env)
 
 
-def _segment_inputs(dev, n_lights, seed=7, R=5000):
-    """Rays that really hit their recorded triangle (random barycentrics),
-    plus misses, dead rays, degenerate triangles and unlit rays."""
+def _segment_inputs(dev, n_lights, seed=7, R=5000, tri=None):
+    """Rays that really hit their recorded triangle (random barycentrics;
+    the triangle of each ray from ``tri`` [R] when given), plus misses,
+    dead rays, degenerate triangles and unlit rays."""
     data, rng = _random_scene(seed, 400, dev)
     tri_pack = shade.pack_shade_geom(data).tri_pack.clone()
     T = tri_pack.shape[0]
@@ -366,6 +369,8 @@ def _segment_inputs(dev, n_lights, seed=7, R=5000):
         rng.normal(size=(T, 9)).astype(np.float32)).to(dev)
     tri_pack[:, 42] = 0.3                             # mirrors
     ti = rng.integers(0, T, R)
+    if tri is not None:
+        ti = np.asarray(tri)
     bary = rng.dirichlet((1.0, 1.0, 1.0), R).astype(np.float32)
     pk = tri_pack.cpu().numpy()
     hitp = (bary[:, :1] * pk[ti, 0:3] + bary[:, 1:2] * pk[ti, 3:6]
@@ -396,7 +401,7 @@ def _segment_inputs(dev, n_lights, seed=7, R=5000):
 
 
 def _close_scaled(got, want, name, rel=3e-5):
-    tol = rel * max(float(want.abs().max()), 1e-3)
+    tol = rel * max(float(want.abs().max()) if want.numel() else 0.0, 1e-3)
     assert bool(torch.isfinite(want).all()), name
     torch.testing.assert_close(got, want, rtol=0.0, atol=tol, msg=name)
 
@@ -410,13 +415,73 @@ def test_shade_segment_kernels_match_plain(cuda, n_lights):
     for name, a, b in zip(("add", "o2", "d2", "w2"), fwd,
                           sg.segment_plain(*args)):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=name)
+    _check_segment_bwd(args, cots)
+
+
+#: K6's outputs, and the bar of each against the plain version
+SEG_BWD = (("g_o", 3e-5), ("g_d", 3e-5), ("g_w", 3e-5), ("g_pack", 5e-4),
+           ("g_light_pos", 3e-5), ("g_light_color", 3e-5),
+           ("g_ambience", 3e-5), ("g_background", 3e-5))
+
+
+def _check_segment_bwd(args, cots):
+    """K6 against its plain version; returns the kernel's g_pack."""
+    before = LAUNCHES["seg_bwd"]
     bwd = sg.segment_bwd(*args, *cots)
-    assert LAUNCHES["seg_bwd"] == before["seg_bwd"] + 1
-    names = ("g_o", "g_d", "g_w", "g_rows", "g_light_pos", "g_light_color",
-             "g_ambience", "g_background")
-    for name, a, b in zip(names, bwd, sg.segment_bwd_plain(*args, *cots)):
+    assert LAUNCHES["seg_bwd"] == before + 1
+    for (name, rel), a, b in zip(SEG_BWD, bwd,
+                                 sg.segment_bwd_plain(*args, *cots)):
         assert a.shape == b.shape, name
-        _close_scaled(a, b, name)
+        _close_scaled(a, b, name, rel)
+    return bwd[3]
+
+
+@pytest.mark.parametrize("case", ["one_triangle", "own_triangle", "ragged"])
+def test_shade_segment_row_sum_hand_cases(cuda, case):
+    """K6's warp row sum: every ray on one triangle (one group of 32 a
+    warp), every lane of a warp on its own triangle (32 groups of one),
+    and R not a multiple of 32 (the last warp's tail lanes add
+    nothing)."""
+    R = {"one_triangle": 4096, "own_triangle": 4096, "ragged": 1000}[case]
+    # triangles 0-19 of _segment_inputs are degenerate; 400 in all
+    tri = {"one_triangle": np.full(R, 25),
+           "own_triangle": np.arange(R) % 380 + 20, "ragged": None}[case]
+    args, cots = _segment_inputs(cuda, 2, seed=11, R=R, tri=tri)
+    g_pack = _check_segment_bwd(args, cots)
+    rows_hit = (g_pack.abs().sum(1) > 0).nonzero()[:, 0]
+    if case == "one_triangle":
+        assert rows_hit.tolist() == [25]
+    else:
+        assert rows_hit.numel() > 1
+
+
+def test_shade_segment_kernels_match_plain_on_office(cuda):
+    """K6 on the office frame's first segment, with the topology the
+    trace records: many rays of a warp share a triangle."""
+    s = scene_08_office(tess=3, resolution=(160, 96))
+    data = s.build(device=cuda)
+    pack = tr.pack_trace(data)
+    o, d = primary_rays_blocked(s.camera, cuda)
+    topo = tr.trace_topology(data, o, d, pack=pack)
+    R = o.shape[0]
+    ti = torch.clamp(topo.idx[0], 0, data.n_tris - 1).to(torch.int32)
+    args = (o, d, torch.ones(R, device=cuda), pack.geom.tri_pack,
+            ti.contiguous(), data.light_pos, data.light_color, data.ambience,
+            data.background, (topo.kind[0] == shade.KIND_TRI).contiguous(),
+            topo.hit[0].contiguous(), topo.miss[0].contiguous(),
+            (~topo.shadow[0]).float().contiguous())
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    cots = [torch.randn(sh, generator=gen, device=cuda)
+            for sh in ((R, 3), (R, 3), (R, 3), (R,))]
+    # no cotangent on a hit whose re-solve fails: its point lies at
+    # t = INF, and its exact reverse overflows (chip_smoke phase 7 holds
+    # those entries equal in both)
+    far = sg.segment_plain(*args)[1].abs().amax(1) > 1e30
+    for c in cots:
+        c[far] = 0.0
+    g_pack = _check_segment_bwd(args, cots)
+    assert int((g_pack.abs().sum(1) > 0).sum()) > 100
 
 
 def test_shade_segment_function_on_cuda(cuda):
@@ -481,6 +546,15 @@ def test_bvh_walk_kernel_matches_plain(cuda):
     data, rng = _random_scene(4, 900, cuda)
     o, d = _rays(rng, 5003, cuda)                 # not a multiple of 128
     d[:7, 1] = -0.0                               # 1/d = -inf
+    # a warp whose rays mix finite, -0, +0 and infinite directions and a
+    # non-finite origin: those rays take the NaN-safe slab test, the
+    # others the FMNMX one
+    d[32:40, 0] = -0.0
+    d[40:44, 2] = 0.0
+    d[44:48, 1] = float("inf")
+    d[48:50, 0] = -float("inf")
+    o[50, 1] = float("inf")
+    o[51, 2] = float("nan")
     hits = {}
     for name, kw in _walk_queries(data, o, d, cuda):
         hits[name] = _check_walk(data, o, d, cuda, name, kw)
@@ -550,6 +624,12 @@ def test_bvh_path_launches_the_walk_and_matches_cluster(cuda, entry):
     else:
         diff = (got - want).abs().amax(dim=-1)
         assert float((diff <= 1e-4).float().mean()) >= 0.995
+
+
+def test_bvh_walk_block_matches_its_plain_order(cuda):
+    """compact_active orders the any-hit rays by K7's block size."""
+    from myraytracer_tpu_torch.kernels import library
+    assert library().mrt_bvh_walk_threads() == trv.WALK_BLOCK
 
 
 def test_bvh_walk_wrapper_rejects_bad_inputs(cuda):

@@ -239,3 +239,69 @@ def test_plain_config_runs_the_same_path_on_cpu():
     a = prender.render(data, cam)
     b = prender.render(data, cam, cfg=tr.TraceConfig(plain=True))
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+#: the entry points that take cfg and tile
+ENTRY_POINTS = ("render", "render_aa", "render_loss_grad",
+                "render_loss_grad_image")
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_take_cfg_before_tile(entry, monkeypatch):
+    """The reference's parameter order (cfg, then tile): a TraceConfig
+    passed by position reaches the tracer, and the call equals the one
+    by keyword."""
+    import inspect
+
+    from myraytracer_tpu.ops import render as rrender_mod
+
+    from myraytracer_tpu_torch.ops import traverse as trv
+
+    ref_fn = getattr(rrender_mod, entry if entry in ("render", "render_aa")
+                     else "_" + entry)
+    want_names = list(inspect.signature(ref_fn).parameters)
+    got_names = list(inspect.signature(getattr(prender, entry)).parameters)
+    assert got_names.index("cfg") == want_names.index("cfg")
+    assert got_names.index("tile") == want_names.index("tile")
+    if entry == "render":
+        assert got_names[:5] == want_names[:5]
+
+    s = office("port", tess=2, w=64, h=48)
+    data, cam = s.build(device="cpu"), s.camera
+    o, d = prender.primary_rays_blocked(cam, "cpu")
+    rng = np.random.default_rng(0)
+    img_t = torch.from_numpy(rng.uniform(size=(48, 64, 3)).astype(np.float32))
+    lead = {"render": (data, cam), "render_aa": (data, cam),
+            "render_loss_grad": (data, o, d, torch.zeros_like(o)),
+            "render_loss_grad_image": (data, cam, img_t)}[entry]
+    fn = getattr(prender, entry)
+    calls = []
+    brute = trv.intersect_tris_brute
+    monkeypatch.setattr(trv, "intersect_tris_brute",
+                        lambda *a, **k: (calls.append(1), brute(*a, **k))[1])
+    cfg = tr.TraceConfig(tri_method="brute")
+    got = fn(*lead, cfg, 2048)
+    assert calls, "the positional cfg did not reach the tracer"
+    want = fn(*lead, cfg=cfg, tile=2048)
+    if entry.startswith("render_loss"):
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(got[1][k], want[1][k]) for k in want[1])
+    else:
+        assert torch.equal(got, want)
+
+
+def test_render_unclamped_matches_reference():
+    """render(..., clamp=False) is the reference's unclamped linear image:
+    with the light raised, colors pass 1, and clamping them gives the
+    default render."""
+    s = office("ref", tess=2, w=64, h=48)
+    s.lights = [type(lt)(lt.position, (2.5, 2.5, 2.5)) for lt in s.lights]
+    ref = s.build()
+    want = np.asarray(rrender(ref, s.camera, cfg=REF_CFG, clamp=False))
+    port = to_port(ref)
+    cam = office("port", tess=2, w=64, h=48).camera
+    got = prender.render(port, cam, clamp=False)
+    assert float(got.max()) > 1.0 and want.max() > 1.0
+    _agree(got.numpy(), want)
+    torch.testing.assert_close(prender.render(port, cam),
+                               torch.clamp(got, max=1.0), rtol=0, atol=0)
