@@ -69,7 +69,30 @@ nvcc. Phases:
  16. training on o_04 (spheres and planes) and o_10 (textured, bilinear
      fetch) at golden resolution with "bvh": three warm steps (median
      seconds, finite loss and gradients) and three Adam steps in which
-     the loss falls.
+     the loss falls;
+ 17. the CLI's render verb in process (python -m myraytracer_tpu_torch
+     render): examples/demo.sce at 640x480 (sphere, cylinder, mesh,
+     mirror floor, depth 3) with and without --aa, and --golden
+     o_08_office; each PNG against render / render_aa called directly
+     with tri_method="auto", demo.sce's kernel render against its
+     plain-version render (>= 99.5% of pixels within 1e-4), seconds and
+     launches of each CLI call;
+ 18. inverse rendering on office at 1920x1080 over every pixel
+     (InverseRenderer.fit_pixels, "auto"): five Adam steps on mat_diffuse
+     and light_color toward a darker render (the loss falls, losses and
+     parameters finite, median step seconds), a checkpoint saved,
+     restored into a new renderer and stepped once more, and three steps
+     on cam_eye (finite, K6 launched: the pose gradient comes through
+     K6's ray cotangents);
+ 19. the port's bench (myraytracer_tpu_torch.bench) at 1920x1080, tess
+     10, in process: its JSON lines, each printed after "bench: "; its
+     last line must hold every key, stage fwd_bwd, a covering AA budget
+     and the card's name and power limit as its device.
+
+Phases 17 to 19 run the "bvh" path (tri_method="auto"): each sets the
+launch counts to 0 just before it and checks after it that the walk, K3
+and K4 (and, where it trains, K5 and K6) were launched and the cluster
+scan's kernels were not.
 
 Every kernel entry of the JSON summary carries its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -94,6 +117,7 @@ CUDA device it exits non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -198,13 +222,6 @@ class CheckFailed(AssertionError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int) -> float:
@@ -910,18 +927,14 @@ def gallery(scenes, dev, report):
 
 def office_aa(data, camera):
     """Phase 12: office 1920x1080 through render_aa, with the budget sized
-    from the pass-1 image as bench.py sizes it."""
-    import math
-
+    from the pass-1 image as the bench sizes it."""
     import torch
 
-    from myraytracer_tpu_torch.ops.render import (AA_THRESHOLD, _deviation,
-                                                  aa_budget_covered, render,
-                                                  render_aa)
+    from myraytracer_tpu_torch.ops.render import (aa_budget_covered, render,
+                                                  render_aa, sized_aa_budget)
 
     img1 = render(data, camera)
-    frac = float((_deviation(img1) > AA_THRESHOLD).float().mean())
-    budget = max(0.01, math.ceil(frac * 1.1 / 0.0025) * 0.0025)
+    budget, frac = sized_aa_budget(img1)
     covered = aa_budget_covered(img1, budget)
     img, secs, launches = timed(
         lambda: render_aa(data, camera, budget_frac=budget))
@@ -1086,19 +1099,16 @@ def compare_bvh_walk(data, camera, report, ptxas, sass):
 def office_bvh(data, camera, report):
     """Phase 14: office 1080p through render, render_aa and the training
     step with tri_method="bvh", against the cluster path."""
-    import math
-
     import torch
 
     from myraytracer_tpu_torch.ops import tracer as tr
-    from myraytracer_tpu_torch.ops.render import (AA_THRESHOLD, _deviation,
-                                                  render, render_aa,
-                                                  render_loss_grad_image)
+    from myraytracer_tpu_torch.ops.render import (render, render_aa,
+                                                  render_loss_grad_image,
+                                                  sized_aa_budget)
 
     cfg = tr.TraceConfig(tri_method="bvh")
     img_c = render(data, camera)
-    frac = float((_deviation(img_c) > AA_THRESHOLD).float().mean())
-    budget = max(0.01, math.ceil(frac * 1.1 / 0.0025) * 0.0025)
+    budget, _ = sized_aa_budget(img_c)
     target = 0.9 * img_c + 0.02
     runs = (("render", lambda c: render(data, camera, cfg=c)),
             ("render_aa", lambda c: render_aa(data, camera,
@@ -1208,6 +1218,191 @@ def train_goldens(scenes):
               f"{losses}; launches {launches}")
         check(losses[-1] < losses[0], f"{name}: the loss did not fall: "
               f"{losses}")
+
+
+def check_path(what: str, launches: dict, kernels) -> None:
+    """The kernels of a "bvh" path were launched, the cluster scan's not."""
+    for k in kernels:
+        check(launches[k] > 0, f"{what}: {k} was not launched")
+    for k in CLUSTER_KERNELS:
+        check(launches[k] == 0, f"{what}: {k} was launched")
+
+
+def cli_render(dev):
+    """Phase 17: the CLI's render verb, in process: examples/demo.sce (a
+    sphere, a cylinder, a mesh, a mirror floor at depth 3) with and
+    without --aa, and --golden o_08_office. Each PNG against render or
+    render_aa called directly with "auto"; demo.sce's kernel render
+    against its plain-version render."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from myraytracer_tpu_torch import cli
+    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from myraytracer_tpu_torch.models.sceneio import read_scene
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render, render_aa
+    from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
+    from myraytracer_tpu_torch.utils.image import read_png, to_uint8
+
+    demo = os.path.join(REPO, "examples", "demo.sce")
+    auto = tr.TraceConfig(tri_method="auto")
+    runs = (("demo.sce", ["--scene", demo], lambda: read_scene(demo), render),
+            ("demo.sce --aa", ["--scene", demo, "--aa"],
+             lambda: read_scene(demo), render_aa),
+            ("o_08_office", ["--golden", "o_08_office"],
+             GOLDEN_SCENES["o_08_office"][0], render))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.png")
+        for name, args, make, fn in runs:
+            torch.cuda.synchronize()
+            reset_launches()
+            t = time.perf_counter()
+            rc = cli.main(["render", *args, "--out", out])
+            secs = time.perf_counter() - t
+            launches = dict(LAUNCHES)
+            check(rc == 0, f"cli render {name}: exit code {rc}")
+            png = read_png(out)
+            sc = make()
+            data = sc.build(device=dev)
+            direct = fn(data, sc.camera, cfg=auto)
+            want = to_uint8(direct.cpu().numpy()) / np.float32(255)
+            same = float((np.abs(png - want).max(axis=-1)
+                          <= 1 / 255 + 1e-6).mean())
+            line = (f"cli render {name} {sc.camera.width}x{sc.camera.height}: "
+                    f"{secs:.3f} s (build, render, PNG); {same:.6f} of pixels "
+                    f"within 1/255 of {fn.__name__} called directly")
+            check(png.shape == (sc.camera.height, sc.camera.width, 3),
+                  f"cli render {name}: PNG shape {png.shape}")
+            check(same >= GALLERY_AGREE, f"cli render {name}: {same} of "
+                  f"pixels within 1/255 of the direct call")
+            check_path(f"cli render {name}", launches, BVH_FWD_KERNELS)
+            if fn is render and name.startswith("demo"):
+                plain = render(data, sc.camera, cfg=auto._replace(plain=True))
+                agree = float(((direct - plain).abs().amax(dim=-1) <= 1e-4)
+                              .float().mean())
+                check(agree >= GALLERY_AGREE, f"cli render {name}: {agree} "
+                      f"of pixels within 1e-4 of the plain versions' image")
+                line += f"; kernels vs plain {agree:.6f} within 1e-4"
+            print(line + f"; launches {launches}")
+
+
+def fit_office(data, camera):
+    """Phase 18: InverseRenderer.fit_pixels on office at 1920x1080 over
+    every pixel (raster order, "auto"): five Adam steps on mat_diffuse
+    and light_color toward the render with mat_diffuse * 0.8, three on
+    cam_eye from a moved eye, and a checkpoint saved, restored into a new
+    renderer and stepped once more."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render
+
+    auto = tr.TraceConfig(tri_method="auto")
+    xs, ys = (g.reshape(-1) for g in camera.pixel_grid(data.device))
+    dark = render(dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.8),
+                  camera, cfg=auto).reshape(-1, 3)
+    names = ("mat_diffuse", "light_color")
+
+    def steps(inv, target, n):
+        """n single steps: (losses, seconds of each, launches of all)."""
+        torch.cuda.synchronize()
+        reset_launches()
+        losses, secs = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            losses += inv.fit_pixels(xs, ys, target, steps=1).losses
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        return losses, secs, dict(LAUNCHES)
+
+    def finite(inv):
+        return all(bool(torch.isfinite(v).all()) for v in inv.params.values())
+
+    inv = InverseRenderer(data, names, optimizer=adam(0.02), camera=camera)
+    losses, secs, launches = steps(inv, dark, 5)
+    print(f"fit {','.join(names)} {camera.width}x{camera.height}: losses "
+          f"{losses}; median step {statistics.median(secs):.4f} s of {secs}; "
+          f"launches {launches}")
+    check(all(map(math.isfinite, losses)) and finite(inv),
+          "fit: a loss or parameter is not finite")
+    check(losses[-1] < losses[0], f"fit: the loss did not fall: {losses}")
+    check_path("fit", launches, BVH_FWD_KERNELS + ("seg_fwd", "seg_bwd"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inv.save_checkpoint(tmp)
+        again = InverseRenderer(data, names, optimizer=adam(0.02),
+                                camera=camera)
+        again.restore_checkpoint(tmp)
+    check(again.step_count == 5 and all(
+        torch.equal(again.params[k], inv.params[k]) for k in names),
+        "fit: the restored checkpoint differs")
+    more, _, _ = steps(again, dark, 1)
+    check(math.isfinite(more[0]) and more[0] < losses[0],
+          f"fit: the step after the restore gave {more}")
+
+    true = render(data, camera, cfg=auto).reshape(-1, 3)
+    moved = dataclasses.replace(
+        camera, eye=camera.eye + torch.tensor([0.05, -0.03, 0.02]))
+    cam_inv = InverseRenderer(data, ("cam_eye",), optimizer=adam(0.01),
+                              camera=moved)
+    cam_losses, cam_secs, cam_launches = steps(cam_inv, true, 3)
+    eye = cam_inv.fitted_camera().eye.cpu()
+    print(f"fit cam_eye {camera.width}x{camera.height}: losses {cam_losses}; "
+          f"eye {moved.eye.tolist()} -> {eye.tolist()}; median step "
+          f"{statistics.median(cam_secs):.4f} s of {cam_secs}; resumed fit "
+          f"step loss {more[0]}; launches {cam_launches}")
+    check(all(map(math.isfinite, cam_losses)) and finite(cam_inv),
+          "fit cam_eye: a loss or the eye is not finite")
+    check(not torch.equal(eye, moved.eye.cpu()), "fit cam_eye: eye unmoved")
+    check_path("fit cam_eye", cam_launches,
+               BVH_FWD_KERNELS + ("seg_fwd", "seg_bwd"))
+
+
+def bench_office():
+    """Phase 19: the port's bench at 1920x1080, office tess 10, in
+    process; its JSON lines printed with a "bench: " prefix."""
+    import io
+
+    import torch
+
+    from myraytracer_tpu_torch import bench
+    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from myraytracer_tpu_torch.utils.profiling import gpu_line
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    rc = bench.main(["--res", "1920x1080", "--tess", "10"], out=out)
+    secs = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print("bench: " + line)
+    check(rc == 0 and lines, f"bench: exit code {rc}, {len(lines)} lines")
+    last = json.loads(lines[-1])
+    print(f"bench: {len(lines)} lines in {secs:.2f} s; launches {launches}")
+    missing = set(bench.KEYS) - set(last)
+    check(not missing, f"bench: the last line lacks {sorted(missing)}")
+    check(last["stage"] == "fwd_bwd", f"bench: stage {last['stage']}")
+    check(last["resolution"] == "1920x1080" and last["n_tris"] == 18664,
+          f"bench: {last['resolution']}, {last['n_tris']} triangles")
+    check(last["aa_budget_covered"] is True and last["loss_finite"] is True,
+          "bench: AA budget not covering, or a loss not finite")
+    check(last["device"] == gpu_line() and
+          torch.cuda.get_device_name(0) in last["device"],
+          f"bench: device {last['device']!r}")
+    check(all(math.isfinite(v) and v > 0 for k, v in last.items()
+              if isinstance(v, float)), "bench: a time or rate is not > 0")
+    check_path("bench", launches, BVH_FWD_KERNELS + ("seg_fwd", "seg_bwd"))
 
 
 def build_gallery(dev):
@@ -1325,6 +1520,9 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     gallery_bvh(scenes)
     train_goldens(scenes)
     del scenes
+    cli_render(dev)
+    fit_office(data, scene.camera)
+    bench_office()
     return report
 
 
@@ -1341,6 +1539,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+
+    from myraytracer_tpu_torch.utils.profiling import gpu_line
 
     gpu = gpu_line()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "

@@ -6,26 +6,39 @@ JAX package is the reference it is tested against; this package imports
 neither it nor JAX.
 
 Layout (module names follow the reference):
-    models/    scene authoring and the packed SceneData of tensors
+    models/    scene authoring, the packed SceneData of tensors, OBJ/OFF
+               meshes (objio) and .sce scene files (sceneio)
     ops/       cluster cut, cluster scan, shading, shade segment, refit,
                tracer, render and training entry points
     parallel/  split_params / merge_params of the training step
     scenes/    procedural authoring of the ten golden scenes and the
                gallery entry point (python -m myraytracer_tpu_torch.scenes.golden)
-    utils/     vector math, PNG reading and writing
+    utils/     vector math, PNG reading and writing, runtime checks,
+               timing and profiling
     kernels/   nvcc build and ctypes binding of csrc/*.cu
     csrc/      the CUDA kernels (cluster scan, phase-1, shading, shade
                segment forward and backward, BVH walk)
+    inverse.py InverseRenderer: fit scene and camera parameters to images
+    bench.py   the office 1920x1080 benchmark
+    cli.py     python -m myraytracer_tpu_torch render|fit|bench
 
 Ported so far: the forward render with adaptive supersampling and the
 training step (loss and scene-parameter gradients), both over every
 primitive kind (triangles, spheres, planes, cylinders) and textured
 meshes, through any of the three triangle methods (the cluster scan, the
-BVH walk, the brute-force oracle). The entry points take the reference's
-argument order: ``render(scene, camera, cfg, tile, clamp)``,
-``render_aa(scene, camera, cfg, tile, ...)``,
+BVH walk, the brute-force oracle; "auto" is the walk); scene files,
+inverse rendering (single device) and the command line. The entry points
+take the reference's argument order: ``render(scene, camera, cfg, tile,
+clamp)``, ``render_aa(scene, camera, cfg, tile, ...)``,
 ``render_loss_grad(scene, o, d, target, cfg, tile)`` and
 ``render_loss_grad_image(scene, camera, target, cfg, tile)``.
+
+From a shell, on the GPU (``--backend cpu`` runs the kernels' plain
+versions on the CPU; without it and without a GPU each verb exits 2)::
+
+    python -m myraytracer_tpu_torch render --scene examples/demo.sce --out demo.png
+    python -m myraytracer_tpu_torch fit --golden o_05_cube --target t.png
+    python -m myraytracer_tpu_torch bench
 """
 
 __version__ = "0.1.0"

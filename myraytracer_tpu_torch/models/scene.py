@@ -123,6 +123,11 @@ class SceneData:
         return self.light_pos.shape[0]
 
     @property
+    def n_nodes(self) -> int:
+        """BVH nodes (one placeholder node when there is no triangle)."""
+        return self.bvh_bbmin.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.vertex_pos.device
 

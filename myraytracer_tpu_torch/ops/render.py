@@ -24,6 +24,7 @@ backward over the parameters.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -150,6 +151,17 @@ def aa_budget_covered(img1: torch.Tensor, budget_frac: float,
     H, W = img1.shape[:2]
     K = min(max(1, int(H * W * budget_frac)), H * W)
     return int((_deviation(img1) > threshold).sum()) <= K
+
+
+def sized_aa_budget(img1: torch.Tensor) -> Tuple[float, float]:
+    """The :func:`render_aa` budget for the pass-1 image ``img1``, sized as
+    the bench sizes it: the fraction of pixels above AA_THRESHOLD times
+    1.1, rounded up to a multiple of 0.0025, at least 0.01. The deviation
+    map is fixed for a scene and resolution, so the margin only covers
+    rounding across runs. Returns (budget, the above-threshold fraction).
+    """
+    frac = float((_deviation(img1) > AA_THRESHOLD).float().mean())
+    return max(0.01, math.ceil(frac * 1.1 / 0.0025) * 0.0025), frac
 
 
 def _aa_rays(camera: Camera, img1, subp: int, threshold: float,

@@ -58,8 +58,9 @@ from myraytracer_tpu_torch.utils import vecmath as vm
 ANA_BUDGET = 1 << 24
 
 
-#: the triangle methods of TraceConfig.tri_method
-TRI_METHODS = ("cluster", "bvh", "brute")
+#: the triangle methods of TraceConfig.tri_method ("auto" resolves to
+#: one of the others)
+TRI_METHODS = ("auto", "cluster", "bvh", "brute")
 
 #: the texture fetches of TraceConfig.texture_filter
 TEXTURE_FILTERS = ("nearest", "bilinear")
@@ -70,11 +71,12 @@ class TraceConfig(NamedTuple):
     what the fused path reads."""
 
     #: triangle intersection: "cluster" (the cluster scan, K2 + K1),
-    #: "bvh" (the threaded-BVH walk, K7) or "brute" (every triangle,
-    #: the oracle). The reference's "auto" is not taken: the port's
-    #: default stays "cluster", the method every recorded number was
-    #: measured on; whether a GPU default should be "bvh" is for the
-    #: card's numbers of both to decide (PERF.md).
+    #: "bvh" (the threaded-BVH walk, K7), "brute" (every triangle, the
+    #: oracle) or "auto", which resolves to "bvh" as the reference's does
+    #: off the TPU (:meth:`resolved_method`). The port's default stays
+    #: "cluster", the method every recorded number was measured on;
+    #: whether the default should be "bvh" is for the card's numbers of
+    #: both to decide (PERF.md).
     tri_method: str = "cluster"
     #: the texel fetch of the training replay: "nearest" or "bilinear"
     #: (differentiable in the texels and the UVs). The forward shades
@@ -104,6 +106,10 @@ class TraceConfig(NamedTuple):
             raise ValueError(f"texture_filter must be one of "
                              f"{TEXTURE_FILTERS}, not {self.texture_filter!r}")
         return self
+
+    def resolved_method(self) -> str:
+        """The triangle method that runs: "auto" is "bvh"."""
+        return "bvh" if self.tri_method == "auto" else self.tri_method
 
     def fused_grad(self, scene) -> bool:
         """Does :func:`trace_shade` take the fused K5/K6 segment? The
@@ -136,7 +142,7 @@ def pack_trace(scene, cfg: TraceConfig = TraceConfig()) -> TracePack:
     """Pack the tables :func:`segment_step` reads (once per render): the
     triangle-major cluster constants for "cluster", the corner rows of the
     current vertices for "bvh" and "brute"."""
-    method = cfg.validate().tri_method
+    method = cfg.validate().resolved_method()
     cl_rows = tri_flat = None
     if scene.n_tris:
         if method == "cluster":
@@ -258,13 +264,13 @@ def closest_hit(scene, pack: TracePack, o, d, live,
 
 def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
                t_max=None, any_hit: bool = False) -> trv.TriHit:
-    """The one triangle query of a segment, by ``cfg.tri_method``.
+    """The one triangle query of a segment, by ``cfg.resolved_method()``.
 
     "brute" has no any-hit mode and no mask: it answers occlusion as the
     reference's ``_closest_tris`` does, with a closest query below
     ``t_max`` (idx >= 0 means occluded), masked here with ``active``.
     """
-    method = cfg.tri_method
+    method = cfg.resolved_method()
     if method == "cluster":
         return cc.intersect_clusters(scene, o, d, t_max=t_max,
                                      any_hit=any_hit, active=active,

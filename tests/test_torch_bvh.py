@@ -199,15 +199,30 @@ def test_walk_stats_count_the_work():
 
 def test_trace_config_rejects_unknown_methods():
     data = mesh_scene("port").build(device="cpu")
-    for cfg in (tr.TraceConfig(tri_method="auto"),
-                tr.TraceConfig(tri_method="bvh2"),
+    for cfg in (tr.TraceConfig(tri_method="bvh2"),
+                tr.TraceConfig(tri_method="AUTO"),
                 tr.TraceConfig(texture_filter="trilinear")):
         with pytest.raises(ValueError):
             tr.pack_trace(data, cfg)
     assert tr.TraceConfig().tri_method == "cluster"
-    bvh = tr.pack_trace(data, tr.TraceConfig(tri_method="bvh"))
-    assert bvh.cl_rows is None and bvh.tri_flat.shape == (data.n_tris, 16)
+    for method in ("bvh", "auto"):
+        bvh = tr.pack_trace(data, tr.TraceConfig(tri_method=method))
+        assert bvh.cl_rows is None and bvh.tri_flat.shape == (data.n_tris, 16)
     assert tr.pack_trace(data).tri_flat is None
+
+
+@pytest.mark.parametrize("entry", ["render", "render_aa"])
+def test_auto_is_the_walk(entry):
+    """"auto" resolves to "bvh", the reference's rule off the TPU: the
+    same images, bit for bit."""
+    s = mesh_scene("port")
+    s.meshes[1].material.mirror = 0.5
+    data = s.build(device="cpu")
+    fn = getattr(prender, entry)
+    assert tr.TraceConfig(tri_method="auto").resolved_method() == "bvh"
+    auto = fn(data, s.camera, cfg=tr.TraceConfig(tri_method="auto"))
+    bvh = fn(data, s.camera, cfg=tr.TraceConfig(tri_method="bvh"))
+    assert torch.equal(auto, bvh) and float(auto.mean()) > 0.02
 
 
 # --- render and render_aa ---------------------------------------------------

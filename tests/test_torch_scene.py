@@ -101,6 +101,7 @@ def test_build_matches_reference(name, monkeypatch):
         assert getattr(got, f) == static[f], f
     assert got.n_segments == ref.n_segments == 1
     assert got.n_lights == ref.n_lights
+    assert got.n_nodes == ref.n_nodes == want["bvh_bbmin"].shape[0] > 1
 
 
 def test_office_shapes():
@@ -136,7 +137,9 @@ def test_imports_without_jax():
             "from myraytracer_tpu_torch.parallel import shard_render; "
             "from myraytracer_tpu_torch.ops import intersect, texture; "
             "from myraytracer_tpu_torch.scenes import golden, kinds; "
-            "from myraytracer_tpu_torch.utils import image; "
+            "from myraytracer_tpu_torch.utils import image, checks, profiling; "
+            "from myraytracer_tpu_torch.models import objio, sceneio; "
+            "from myraytracer_tpu_torch import bench, cli, inverse, __main__; "
             "print(m.render.__module__, m.render_loss_grad_image.__module__, "
             "m.split_params.__module__)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -64,7 +63,7 @@ def main() -> int:
     ap.add_argument("--scene", default=None,
                     help="profile render_aa of this golden scene instead")
     ap.add_argument("--tri-method", default="cluster",
-                    choices=("cluster", "bvh", "brute"),
+                    choices=("cluster", "bvh", "brute", "auto"),
                     help="the triangle method (TraceConfig.tri_method)")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
@@ -82,10 +81,9 @@ def main() -> int:
     from myraytracer_tpu_torch.ops.tracer import TraceConfig
     from myraytracer_tpu_torch.scenes.golden import (GOLDEN_SCENES,
                                                      scene_08_office)
+    from myraytracer_tpu_torch.utils.profiling import gpu_line
 
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    gpu = gpu_line()
     if args.scene:
         builder, budget = GOLDEN_SCENES[args.scene]
         scene = builder()
