@@ -94,6 +94,32 @@ launch counts to 0 just before it and checks after it that the walk, K3
 and K4 (and, where it trains, K5 and K6) were launched and the cluster
 scan's kernels were not.
 
+ 20. the sharded path (parallel/) on office at 1920x1080, tess 10:
+     render_sharded, render_aa_sharded (the budget sized as phase 12
+     sizes it), one sharded SGD step (loss_grad_sharded and
+     make_train_step on the screen-block batch) and three Adam steps of
+     InverseRenderer(mesh=...) on mat_diffuse (parallel/dryrun.run_suite,
+     each part twice, the second timed): first on one device, then at
+     world size 1 over NCCL in this process, then at world size 2 over
+     gloo, two ranks on cuda:0 spawned by parallel/dryrun.spawn (the
+     scene through replicate_global; make_mesh(3) and replicate_global
+     of a different tensor on each rank must raise). Each rank's
+     launches per part (K2, K1, K1', K3 and K4 for the render and AA;
+     the cluster scan, K3, K5 and K6 for the step; the walk, K3, K4, K5
+     and K6, and no cluster kernel, for the fit), held against the
+     single-device results: images >= 99.5% of pixels within 1e-4 (at
+     world size 1 equal bit for bit), the loss within rtol 1e-5, every
+     gradient within REL_GRAD * max|single|, the fit's losses within
+     rtol 1e-5; wall seconds beside the single device's;
+ 21. the native BVH builder (runtime/native.py) against NumPy on office
+     tess 10 and tess 28: BVH seconds and whole Scene.build seconds of
+     each, which arrays are equal, and a 480x270 render of the
+     native-built scene against the NumPy-built one (>= 99.5% of pixels
+     within 1e-4);
+ 22. the port's inverse demo (examples/inverse_demo_torch.py) at its
+     defaults on the card: each of its three fits lowers its loss, its
+     seconds.
+
 Every kernel entry of the JSON summary carries its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and the operations these inputs need over 67 TFLOP/s
@@ -110,8 +136,9 @@ cull keeps; beside it, its entry carries all_pairs_bound_ms (and
 all_pairs_bound_by), every (ray, box) slab test.
 
 Prints one JSON line with the per-kernel summary, then a final JSON status
-line. Any failed check raises and the exit code is non-zero; without a
-CUDA device it exits non-zero before doing anything.
+line; ``--log PATH`` writes the whole output to PATH as well. Any failed
+check raises and the exit code is non-zero; without a CUDA device it
+exits non-zero before doing anything.
 """
 
 from __future__ import annotations
@@ -1405,6 +1432,214 @@ def bench_office():
     check_path("bench", launches, BVH_FWD_KERNELS + ("seg_fwd", "seg_bwd"))
 
 
+def suite_checks(what: str, got: dict, want: dict, bit_equal: bool) -> str:
+    """Phase 20: one sharded run_suite result against the single-device
+    one; returns its line of agreement."""
+    import torch
+
+    agree = {}
+    for k in ("img", "img_aa"):
+        agree[k] = float(((got[k] - want[k]).abs().amax(dim=-1) <= 1e-4)
+                         .float().mean())
+        check(agree[k] >= GALLERY_AGREE, f"{what} {k}: {agree[k]} of pixels "
+              "within 1e-4 of the single device's")
+        if bit_equal:
+            check(torch.equal(got[k], want[k]),
+                  f"{what} {k}: not equal to the single device's")
+    rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    check(rel_loss <= 1e-5, f"{what}: loss {got['loss']} vs {want['loss']}")
+    check(got["n_total"] == want["n_total"], f"{what}: n_total")
+    worst = 0.0
+    for k, g in want["grads"].items():
+        if g.numel():
+            ratio = float((got["grads"][k] - g).abs().max()) / max(
+                float(g.abs().max()), 1e-30)
+            worst = max(worst, ratio)
+            check(ratio <= REL_GRAD, f"{what}: gradient {k} off by {ratio} "
+                  "x max|single|")
+    fit_rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(got["fit_losses"], want["fit_losses"]))
+    check(fit_rel <= 1e-5 and len(got["fit_losses"]) == len(
+        want["fit_losses"]), f"{what}: fit losses {got['fit_losses']} vs "
+        f"{want['fit_losses']}")
+    check(got["fit_losses"][-1] < got["fit_losses"][0],
+          f"{what}: the fit's loss did not fall: {got['fit_losses']}")
+    return (f"image agreement {agree['img']:.6f}, AA {agree['img_aa']:.6f}"
+            f"{' (bit-equal)' if bit_equal else ''}; loss {got['loss']!r} "
+            f"(rel {rel_loss:.3g}); gradients within {worst:.3g} x "
+            f"max|single|; fit losses {got['fit_losses']} (rel {fit_rel:.3g})")
+
+
+def launched(launches: dict) -> dict:
+    """Phase 20's launch counts per part, without the kernels at 0."""
+    return {part: {k: v for k, v in counts.items() if v}
+            for part, counts in launches.items()}
+
+
+def suite_launches(what: str, launches: dict) -> None:
+    """Phase 20: the kernels of each part of a sharded run were launched."""
+    for part in ("render", "render_aa"):
+        for k in FWD_KERNELS:
+            check(launches[part][k] > 0, f"{what} {part}: {k} not launched")
+    for k in CLUSTER_KERNELS + ("shade_pre", "seg_fwd", "seg_bwd"):
+        check(launches["train_step"][k] > 0,
+              f"{what} train_step: {k} not launched")
+    check_path(f"{what} fit", launches["fit"],
+               BVH_FWD_KERNELS + ("seg_fwd", "seg_bwd"))
+
+
+def sharded_office(dev, tess: int = 10, full=(1920, 1080)):
+    """Phase 20: the sharded render, AA, training step and fit on office
+    at 1920x1080: on one device, at world size 1 over NCCL in process,
+    and at world size 2 over gloo on cuda:0 (parallel/dryrun.spawn)."""
+    import torch
+    import torch.distributed as dist
+
+    from myraytracer_tpu_torch.ops.render import render, sized_aa_budget
+    from myraytracer_tpu_torch.parallel import dryrun
+    from myraytracer_tpu_torch.parallel.mesh import backend_for, make_mesh
+
+    kind = torch.device(dev).type
+
+    t = time.perf_counter()
+    kw = dict(scene="office",
+              scene_kw=dict(tess=tess, width=full[0], height=full[1]),
+              fit_steps=3)
+    case = dryrun.suite_case(device=dev, **kw)
+    kw["budget_frac"], _ = sized_aa_budget(render(case.scene, case.camera))
+    case.budget_frac = kw["budget_frac"]
+    print(f"sharded: office tess {tess} {full[0]}x{full[1]} built in "
+          f"{time.perf_counter() - t:.2f} s; AA budget {kw['budget_frac']}")
+    one = dryrun.run_suite(case, None, reps=2)
+
+    t = time.perf_counter()
+    mesh = make_mesh(1, dev)
+    try:
+        check(dist.get_backend() == backend_for(kind),
+              f"world size 1: backend {dist.get_backend()}")
+        ws1 = dryrun.run_suite(case, mesh, reps=2)
+    finally:
+        dist.destroy_process_group()
+    ws1_secs = time.perf_counter() - t
+    del case
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = dryrun.spawn("suite", 2, dict(kw, reps=2), device=kind,
+                         backend="gloo", deadline_s=300)
+    ws2_secs = time.perf_counter() - t
+
+    secs = {part: f"{one['seconds'][part]:.4f}" for part in one["seconds"]}
+    print(f"sharded: single device: seconds {secs}; loss {one['loss']!r}; "
+          f"fit losses {one['fit_losses']}")
+    suite_launches("world size 1 (NCCL)", ws1["launches"])
+    line = suite_checks("world size 1 (NCCL)", ws1, one, bit_equal=True)
+    secs = {p: f"{ws1['seconds'][p]:.4f} (single {one['seconds'][p]:.4f})"
+            for p in one["seconds"]}
+    print(f"sharded: world size 1 (NCCL, {ws1_secs:.2f} s in all): seconds "
+          f"{secs}; {line}; launches {launched(ws1['launches'])}")
+    for r, got in enumerate(ranks):
+        what = f"world size 2 (gloo, cuda:0) rank {r}"
+        suite_launches(what, got["launches"])
+        line = suite_checks(what, got, one, bit_equal=False)
+        secs = {p: f"{got['seconds'][p]:.4f} (single "
+                   f"{one['seconds'][p]:.4f})" for p in one["seconds"]}
+        print(f"sharded: {what} ({ws2_secs:.2f} s for both ranks, spawn "
+              f"included): seconds {secs}; {line}; launches "
+              f"{launched(got['launches'])}")
+        check(got["mesh_error"] == "need 3 devices, have 2",
+              f"{what}: make_mesh(3) gave {got.get('mesh_error')!r}")
+        check((got["replicate_error"] is None) == (r == 0),
+              f"{what}: replicate_global of a different tensor on every "
+              f"rank gave {got['replicate_error']!r}")
+    alone = ranks[0]["img_ws1"]
+    agree = float(((alone - one["img"]).abs().amax(dim=-1) <= 1e-4)
+                  .float().mean())
+    check(agree >= GALLERY_AGREE, f"world size 2: the render on a mesh of "
+          f"rank 0 alone: {agree} within 1e-4")
+    print(f"sharded: world size 2, rank 0's render on a mesh of itself: "
+          f"{agree:.6f} of pixels within 1e-4 of the single device's, "
+          f"bit-equal {torch.equal(alone, one['img'])}; dryrun step loss "
+          f"{ranks[0]['dryrun_loss']!r}")
+
+
+def native_builder(dev, tesses=(10, 28), small=(480, 270)):
+    """Phase 21: the native BVH builder against NumPy on office: BVH and
+    Scene.build seconds, equal arrays, and a render of each build."""
+    import torch
+
+    from myraytracer_tpu_torch.models.scene import ARRAY_FIELDS
+    from myraytracer_tpu_torch.ops import bvh
+    from myraytracer_tpu_torch.ops.render import render
+    from myraytracer_tpu_torch.runtime import native
+    from myraytracer_tpu_torch.scenes.golden import scene_08_office
+
+    t = time.perf_counter()
+    native.build()
+    print(f"native: g++ build {time.perf_counter() - t:.2f} s")
+    real = bvh.build_bvh
+    bvh_secs = []
+
+    def timed_build(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        bvh_secs.append(time.perf_counter() - t0)
+        return out
+
+    bvh.build_bvh = timed_build
+    try:
+        for tess in tesses:
+            sc = scene_08_office(tess=tess, resolution=small)
+            built = {}
+            for how in ("numpy", "native"):
+                bvh_secs.clear()
+                t = time.perf_counter()
+                data = sc.build(device=dev, native=how == "native")
+                built[how] = (data, time.perf_counter() - t, bvh_secs[0])
+            a, b = built["numpy"][0], built["native"][0]
+            check(a.n_tris == b.n_tris and a.n_nodes == b.n_nodes,
+                  f"native tess {tess}: {b.n_tris} triangles, {b.n_nodes} "
+                  f"nodes vs {a.n_tris}, {a.n_nodes}")
+            differ = [f for f in ARRAY_FIELDS
+                      if not torch.equal(getattr(a, f), getattr(b, f))]
+            img_a, img_b = render(a, sc.camera), render(b, sc.camera)
+            agree = float(((img_a - img_b).abs().amax(dim=-1) <= 1e-4)
+                          .float().mean())
+            print(f"native: office tess {tess} ({a.n_tris} triangles, "
+                  f"{a.n_nodes} nodes): BVH {built['numpy'][2]:.3f} s NumPy, "
+                  f"{built['native'][2]:.3f} s native; Scene.build "
+                  f"{built['numpy'][1]:.3f} s NumPy, {built['native'][1]:.3f}"
+                  f" s native; arrays that differ: {differ or 'none'}; "
+                  f"{small[0]}x{small[1]} render {agree:.6f} of pixels "
+                  f"within 1e-4")
+            check(agree >= GALLERY_AGREE, f"native tess {tess}: {agree} of "
+                  "pixels within 1e-4 of the NumPy build's render")
+    finally:
+        bvh.build_bvh = real
+
+
+def inverse_demo():
+    """Phase 22: examples/inverse_demo_torch.py at its defaults on the
+    card; each of its fits must lower its loss."""
+    import importlib.util
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location(
+        "inverse_demo_torch",
+        os.path.join(REPO, "examples", "inverse_demo_torch.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        out = demo.main(["--out", tmp])
+        secs = time.perf_counter() - t
+    summary = {k: (out[k][0], out[k][-1], len(out[k]))
+               for k in ("materials", "pose", "zoom")}
+    print(f"demo: {secs:.2f} s; (first loss, last loss, steps) {summary}")
+    for k, (first, last, _) in summary.items():
+        check(math.isfinite(last) and last < first,
+              f"demo {k}: the loss did not fall: {first} -> {last}")
+
+
 def build_gallery(dev):
     """The ten goldens at their golden resolution, and the mixed scene at
     1920x1080, on the card: name -> (Scene, SceneData)."""
@@ -1523,11 +1758,39 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     cli_render(dev)
     fit_office(data, scene.camera)
     bench_office()
+    del data
+    torch.cuda.empty_cache()
+    sharded_office(dev, tess, full)
+    native_builder(dev)
+    inverse_demo()
     return report
 
 
-def main() -> int:
+class Tee:
+    """A text stream that writes to every stream it was given."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--log", metavar="PATH",
+                    help="also write the whole output to PATH")
+    log_path = ap.parse_args(argv).log
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1542,6 +1805,12 @@ def main() -> int:
 
     from myraytracer_tpu_torch.utils.profiling import gpu_line
 
+    if log_path:
+        # a caller that keeps only the end of standard output keeps the
+        # whole log here
+        os.makedirs(os.path.dirname(os.path.abspath(log_path)),
+                    exist_ok=True)
+        sys.stdout = Tee(sys.stdout, open(log_path, "w"))
     gpu = gpu_line()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")

@@ -10,7 +10,11 @@ Layout (module names follow the reference):
                meshes (objio) and .sce scene files (sceneio)
     ops/       cluster cut, cluster scan, shading, shade segment, refit,
                tracer, render and training entry points
-    parallel/  split_params / merge_params of the training step
+    parallel/  ray data parallelism over torch.distributed: the mesh,
+               multi-process initialisation, the sharded render, AA and
+               training step, and the multi-process dryrun
+               (python -m myraytracer_tpu_torch.parallel.dryrun)
+    runtime/   the native (C++) BVH builder, opt-in (native=True)
     scenes/    procedural authoring of the ten golden scenes and the
                gallery entry point (python -m myraytracer_tpu_torch.scenes.golden)
     utils/     vector math, PNG reading and writing, runtime checks,
@@ -27,9 +31,13 @@ training step (loss and scene-parameter gradients), both over every
 primitive kind (triangles, spheres, planes, cylinders) and textured
 meshes, through any of the three triangle methods (the cluster scan, the
 BVH walk, the brute-force oracle; "auto" is the walk); scene files,
-inverse rendering (single device) and the command line. The entry points
-take the reference's argument order: ``render(scene, camera, cfg, tile,
-clamp)``, ``render_aa(scene, camera, cfg, tile, ...)``,
+inverse rendering (on one device, or sharded with ``mesh=``), the
+sharded render, AA and training step over torch.distributed
+(``render_sharded``, ``render_aa_sharded``, ``train_step_sharded``), the
+native BVH builder and the command line: everything the JAX package
+does. The entry points take the reference's argument order:
+``render(scene, camera, cfg, tile, clamp)``,
+``render_aa(scene, camera, cfg, tile, ...)``,
 ``render_loss_grad(scene, o, d, target, cfg, tile)`` and
 ``render_loss_grad_image(scene, camera, target, cfg, tile)``.
 
@@ -51,8 +59,10 @@ from myraytracer_tpu_torch.models.scene import (Scene, SceneData,
 from myraytracer_tpu_torch.ops.render import (render, render_aa,
                                                render_loss_grad,
                                                render_loss_grad_image)
-from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
-                                                         split_params)
+from myraytracer_tpu_torch.parallel import (make_mesh, make_train_step,
+                                            merge_params, render_aa_sharded,
+                                            render_sharded, split_params,
+                                            train_step_sharded)
 
 __all__ = [
     "Camera",
@@ -60,11 +70,16 @@ __all__ = [
     "Material",
     "Scene",
     "SceneData",
+    "make_mesh",
+    "make_train_step",
     "merge_params",
     "render",
     "render_aa",
+    "render_aa_sharded",
     "render_loss_grad",
     "render_loss_grad_image",
+    "render_sharded",
     "scenedata_from_arrays",
     "split_params",
+    "train_step_sharded",
 ]

@@ -12,9 +12,16 @@ the current camera in pixel mode); record the hit topology without
 gradients (``trace_topology``); replay the shading with gradients
 (``trace_shade``); take the mean squared error against the target; one
 backward and one optimizer step. The camera leaves reach the loss through
-the rays' origins and directions. Single device: the reference's
-``mesh=`` (rays sharded over devices) needs ``parallel/``, which is not
-ported.
+the rays' origins and directions.
+
+With ``mesh=`` (a ray mesh, parallel/mesh.make_mesh) every rank of the
+mesh runs the same fit on its share of the rays: the batch is padded to
+the mesh with copies of its last row, weighted 0; each rank's loss is
+``sum(w (c - target)^2)``; after the backward one ``all_reduce`` sums the
+loss, every parameter's gradient and ``sum(w)``, and both are divided by
+``3 * sum(w)`` before the optimizer step (Adam is not scale-free at its
+epsilon). The optimizer state stays replicated, so every rank takes the
+same step; a checkpoint is written by mesh rank 0.
 """
 
 from __future__ import annotations
@@ -24,9 +31,12 @@ import os
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.ops.refit import refit_accel
+from myraytracer_tpu_torch.parallel.mesh import mesh_rank
 from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
                                                          split_params)
 
@@ -77,7 +87,10 @@ class InverseRenderer:
             ``torch.optim.Optimizer`` (default ``adam(1e-2)``).
         cfg: TraceConfig; the default walks the BVH ("auto") and fetches
             texels bilinearly, so texels and UVs get gradients.
-        mesh: rays sharded over devices; not ported (raises).
+        mesh: a ray mesh (parallel/mesh.make_mesh): each step splits the
+            rays over its ranks and sums the gradients across them,
+            which is the single-device fit up to fp32 rounding. Every
+            rank of the mesh makes the same calls with the same data.
         camera: a models.camera.Camera. Attaching one exposes the
             ``cam_*`` leaves; use :meth:`fit_pixels` so the rays follow
             the current pose every step.
@@ -93,10 +106,9 @@ class InverseRenderer:
         mesh=None,
         camera=None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "InverseRenderer(mesh=...) shards rays over devices, which "
-                "needs the parallel package; it is not ported yet")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), "
+                            f"got {type(mesh).__name__}")
         all_params = split_params(scene)
         if camera is not None:
             camera = camera.to(scene.device)
@@ -115,6 +127,7 @@ class InverseRenderer:
             scene = dataclasses.replace(scene, live_depth=scene.max_depth + 1)
         self.base_scene = scene
         self.camera = camera
+        self.mesh = mesh
         self.param_names = tuple(param_names)
         self._use_camera = any(n in _CAM_FIELD for n in self.param_names)
         if self._use_camera and camera is None:
@@ -138,9 +151,10 @@ class InverseRenderer:
         return camera_with(self.camera, {k: v.detach()
                                          for k, v in self.params.items()})
 
-    def _step(self, a, b, target, pixel_mode: bool) -> torch.Tensor:
+    def _step(self, a, b, target, w, pixel_mode: bool) -> torch.Tensor:
         """One optimizer step on rays (a, b) = (o, d), or pixel
-        coordinates (xs, ys) in pixel mode; returns the loss."""
+        coordinates (xs, ys) in pixel mode, and with a mesh this rank's
+        share of them with its weights ``w``; returns the loss."""
         p = self.params
         scene = merge_params(self.base_scene, _scene_leaves(p))
         if "vertex_pos" in self.param_names:
@@ -154,19 +168,60 @@ class InverseRenderer:
             o, d = a, b
         topo = tr.trace_topology(scene, o.detach(), d.detach(), self.cfg)
         c = tr.trace_shade(scene, o, d, topo, self.cfg)
-        loss = torch.mean((c - target) ** 2)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self.mesh is None:
+            loss = torch.mean((c - target) ** 2)
+            loss.backward()
+        else:
+            loss = torch.sum(w[:, None] * (c - target) ** 2)
+            loss.backward()
+            loss = self._all_reduce(loss.detach(), w)
         self.optimizer.step()
         return loss.detach()
+
+    def _all_reduce(self, loss, w) -> torch.Tensor:
+        """Sum the loss, every gradient and ``sum(w)`` over the mesh in one
+        ``all_reduce``; set each gradient to its sum over ``3 * sum(w)``
+        and return the loss over the same."""
+        params = list(self.params.values())
+        flat = torch.cat([loss.reshape(1), w.sum().reshape(1)] + [
+            (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+            for p in params])
+        dist.all_reduce(flat, group=self.mesh.get_group())
+        flat = flat / (3.0 * flat[1])
+        off = 2
+        for p in params:
+            p.grad = flat[off:off + p.numel()].view_as(p).clone()
+            off += p.numel()
+        return flat[0]
+
+    def _shard(self, a, b, target):
+        """This rank's share of (a, b, target) and its weights: the batch
+        padded to the mesh with copies of its last row, weighted 0."""
+        size, rank = self.mesh.size(), mesh_rank(self.mesh)
+        R = a.shape[0]
+        pad = -R % size
+        w = torch.ones(R + pad, dtype=torch.float32, device=a.device)
+        if pad:
+            w[R:] = 0.0
+        n = (R + pad) // size
+
+        def part(x):
+            x = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+            return x[rank * n:(rank + 1) * n].contiguous()
+
+        return part(a), part(b), part(target), part(w)
 
     def _run(self, a, b, target, steps: int, log_every: int,
              pixel_mode: bool = False) -> FitResult:
         dev = self.base_scene.device
         target = torch.as_tensor(target, dtype=torch.float32, device=dev)
+        w = None
+        if self.mesh is not None:
+            a, b, target, w = self._shard(a, b, target)
         losses = []
         for i in range(steps):
-            losses.append(float(self._step(a, b, target, pixel_mode)))
+            losses.append(float(self._step(a, b, target, w, pixel_mode)))
             self.step_count += 1
             if log_every and i % log_every == 0:
                 print(f"step {self.step_count}: loss={losses[-1]:.6f}")
@@ -204,7 +259,16 @@ class InverseRenderer:
     # --- checkpoint / resume --------------------------------------------
     def save_checkpoint(self, path: str) -> None:
         """Write the parameters, the optimizer state and the step count to
-        ``path/state.pt`` (the directory is created)."""
+        ``path/state.pt`` (the directory is created). With a mesh, rank 0
+        of the mesh writes and every rank returns once it has."""
+        if self.mesh is not None:
+            if mesh_rank(self.mesh) == 0:
+                self._save(path)
+            dist.barrier(group=self.mesh.get_group())
+        else:
+            self._save(path)
+
+    def _save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
         torch.save({"params": {k: v.detach().cpu()
                                for k, v in self.params.items()},

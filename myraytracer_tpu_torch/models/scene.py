@@ -216,12 +216,14 @@ class Scene:
 
     # --- packing -----------------------------------------------------------
     def pack(self, leaf_size: int = 4, cluster_size: int = 128,
-             builder: str = "sah") -> Tuple[Dict[str, np.ndarray], dict]:
+             builder: str = "sah", native: bool = False
+             ) -> Tuple[Dict[str, np.ndarray], dict]:
         """Pack the scene into NumPy arrays: (arrays, static fields).
 
         ``leaf_size`` bounds BVH leaf occupancy, ``cluster_size`` sets
         the cluster width M, ``builder`` picks the BVH split rule ("sah"
-        or "median").
+        or "median"), ``native`` builds the BVH with the C++ builder
+        (ops/bvh.build_bvh) instead of NumPy.
         """
         materials: List[Material] = []
         mat_index: dict = {}
@@ -316,7 +318,7 @@ class Scene:
             p1 = vertex_pos[tri_vidx_a[:, 1]]
             p2 = vertex_pos[tri_vidx_a[:, 2]]
             tree = bvh_mod.build_bvh(p0, p1, p2, leaf_size=leaf_size,
-                                     builder=builder)
+                                     builder=builder, native=native)
             perm = tree.order
             tri_vidx_a = tri_vidx_a[perm]
             tri_uvidx_a = tri_uvidx_a[perm]
@@ -425,7 +427,7 @@ class Scene:
         return arrays, static
 
     def build(self, device="cuda", leaf_size: int = 4, cluster_size: int = 128,
-              builder: str = "sah") -> SceneData:
+              builder: str = "sah", native: bool = False) -> SceneData:
         """Pack the scene (:meth:`pack`) into a SceneData on ``device``.
 
         The default is the GPU; without one this raises, and a caller who
@@ -436,5 +438,5 @@ class Scene:
             raise RuntimeError(
                 f"Scene.build: no CUDA device for device={str(device)!r}; "
                 "pass device='cpu' to build on the CPU")
-        arrays, static = self.pack(leaf_size, cluster_size, builder)
+        arrays, static = self.pack(leaf_size, cluster_size, builder, native)
         return scenedata_from_arrays(arrays, static, device)

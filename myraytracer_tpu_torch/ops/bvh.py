@@ -3,8 +3,13 @@
 The NumPy builder of ``myraytracer_tpu/ops/bvh.py`` copied unchanged:
 median or 16-bin SAH splits, triangles physically reordered so every
 leaf owns a contiguous range, and per-octant entry/skip links. The
-cluster cut (ops/cluster.py) reads the leaf order. The reference's
-native C++ fast path is not ported; its output equals this builder's.
+cluster cut (ops/cluster.py) reads the leaf order.
+
+``build_bvh(native=True)`` builds the same tree with the C++ builder of
+``runtime/`` (runtime/native.py), and raises when it cannot be built.
+It is opt-in: its median builds equal this builder's array for array,
+but its SAH builds can order ties differently on symmetric meshes, so
+the NumPy builder stays the default.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ def build_bvh(
     v2: np.ndarray,
     leaf_size: int = MAX_LEAF,
     builder: str = "median",
+    native: bool = False,
 ) -> BVHArrays:
     """Build a BVH over triangles given by vertex positions.
 
@@ -63,6 +69,8 @@ def build_bvh(
             (16-bin binned surface-area heuristic — typically 1.5-2x
             fewer node visits and tighter cluster bounds; falls back to
             median when a node's SAH finds no improving split).
+        native: build with the C++ builder (runtime/native.py); raises
+            when it cannot be built.
     Returns:
         BVHArrays with triangles permuted into leaf-contiguous order via
         ``order`` (new index i holds old triangle order[i]).
@@ -73,6 +81,10 @@ def build_bvh(
     T = v0.shape[0]
     if T == 0:
         raise ValueError("build_bvh: no triangles")
+    if native:
+        from myraytracer_tpu_torch.runtime.native import build_bvh_native
+
+        return build_bvh_native(v0, v1, v2, leaf_size, builder)
 
     centroid = (v0 + v1 + v2) / 3.0
     tri_min = np.minimum(np.minimum(v0, v1), v2)
@@ -255,3 +267,39 @@ def _thread_links(left: np.ndarray, axis: np.ndarray, n_nodes: int):
             stack.append((far, skip_target))
             stack.append((near, np.int32(far)))
     return entry, skip
+
+
+def validate_bvh(bvh: BVHArrays, v0, v1, v2) -> None:
+    """Structural invariants; raises AssertionError on the first broken one.
+
+    ``v0/v1/v2`` must already be in BVH (leaf-contiguous) order, i.e.
+    permuted by ``bvh.order``. Checks: every leaf's triangles lie inside
+    its AABB; every internal node's AABB contains its children; leaf
+    ranges partition [0, T).
+    """
+    tri_min = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
+    tri_max = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
+    seen = np.zeros(bvh.order.shape[0], bool)
+    eps = 1e-4
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(what)
+
+    for n in range(bvh.n_nodes):
+        if bvh.left[n] >= 0:
+            for c in (bvh.left[n], bvh.left[n] + 1):
+                require(np.all(bvh.bbmin[n] <= bvh.bbmin[c] + eps)
+                        and np.all(bvh.bbmax[n] >= bvh.bbmax[c] - eps),
+                        f"node {n}'s box does not hold child {c}'s")
+        else:
+            cnt = bvh.count[n]
+            require(1 <= cnt <= bvh.max_leaf,
+                    f"leaf {n} holds {cnt} triangles (max {bvh.max_leaf})")
+            for i in range(bvh.first[n], bvh.first[n] + cnt):
+                require(not seen[i], f"triangle {i} is in two leaves")
+                seen[i] = True
+                require(np.all(tri_min[i] >= bvh.bbmin[n] - eps)
+                        and np.all(tri_max[i] <= bvh.bbmax[n] + eps),
+                        f"triangle {i} lies outside leaf {n}'s box")
+    require(seen.all(), f"{int((~seen).sum())} triangles are in no leaf")

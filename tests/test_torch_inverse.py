@@ -12,7 +12,11 @@ Bars: losses per step within rtol 1e-4 for materials (ray mode) and
 1e-3 for the camera pose (pixel mode, where the ray origins and
 directions carry the gradient); the fitted parameters within atol 1e-5.
 A checkpointed fit resumed in a new renderer equals an uninterrupted one
-within 1e-7.
+within 1e-7. The sharded fit, on 2 spawned gloo ranks
+(parallel/dryrun.spawn) and on the toy scene at 17x15 (255 rays: one
+padded ray), equals the single-device fit: losses within rtol 1e-5 /
+atol 1e-7, parameters within rtol 1e-4 / atol 1e-5
+(tests/test_inverse.py::test_sharded_fit_matches_unsharded's bars).
 """
 
 import dataclasses
@@ -30,6 +34,7 @@ from myraytracer_tpu.utils import profiling as rprofiling
 from myraytracer_tpu_torch.inverse import (CAMERA_PARAMS, InverseRenderer,
                                            adam, camera_with)
 from myraytracer_tpu_torch.ops import tracer as tr
+from myraytracer_tpu_torch.parallel import dryrun
 from myraytracer_tpu_torch.utils.profiling import (Timer, profile_trace,
                                                    render_metrics,
                                                    scene_footprint_bytes)
@@ -128,11 +133,36 @@ def test_mirror_grows_from_zero(setup):
     (dict(param_names=("tri_vidx",)), ValueError),
     (dict(param_names=("bvh_bbmin",)), ValueError),
     (dict(param_names=("cam_eye",)), ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=object()), TypeError),
 ])
 def test_rejects(kw, err, setup):
     with pytest.raises(err):
         InverseRenderer(setup["port"], **kw)
+
+
+def test_sharded_fit_matches_unsharded(tmp_path):
+    """InverseRenderer(mesh=...) on 2 ranks reproduces the single-device
+    fit: 20 Adam steps on mat_diffuse from mat_diffuse x 0.4. Mesh rank 0
+    writes the checkpoint, every rank returns after it is written, and it
+    restores into a single-device renderer."""
+    ck = str(tmp_path / "ckpt")
+    kw = dict(scene="toy", scene_kw=dict(w=17, h=15), fit_steps=20)
+    ranks = dryrun.spawn("fit", 2, dict(kw, checkpoint=ck), device="cpu")
+    case = dryrun.suite_case(device="cpu", **kw)
+    want_losses, want = dryrun.fit(case)
+    assert want_losses[-1] < 0.5 * want_losses[0]
+    for got in ranks:
+        assert got["checkpoint_seen"]
+        np.testing.assert_allclose(got["fit_losses"], want_losses, rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(got["fit_params"]["mat_diffuse"].numpy(),
+                                   want["mat_diffuse"].detach().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+    back = InverseRenderer(case.fit_start, ("mat_diffuse",))
+    back.restore_checkpoint(ck)
+    assert back.step_count == 20
+    assert torch.equal(back.params["mat_diffuse"].detach(),
+                       ranks[0]["fit_params"]["mat_diffuse"])
 
 
 def test_camera_leaves(setup):

@@ -135,18 +135,25 @@ def test_imports_without_jax():
             "from myraytracer_tpu_torch.ops import render, tracer, cuda_shade; "
             "from myraytracer_tpu_torch.ops import refit, shade_grad; "
             "from myraytracer_tpu_torch.parallel import shard_render; "
+            "from myraytracer_tpu_torch.parallel import mesh, distributed; "
+            "from myraytracer_tpu_torch.parallel import dryrun; "
+            "from myraytracer_tpu_torch.runtime import native; "
+            "from myraytracer_tpu_torch.ops import bvh; "
+            "import runpy; runpy.run_path('examples/inverse_demo_torch.py'); "
             "from myraytracer_tpu_torch.ops import intersect, texture; "
             "from myraytracer_tpu_torch.scenes import golden, kinds; "
             "from myraytracer_tpu_torch.utils import image, checks, profiling; "
             "from myraytracer_tpu_torch.models import objio, sceneio; "
             "from myraytracer_tpu_torch import bench, cli, inverse, __main__; "
             "print(m.render.__module__, m.render_loss_grad_image.__module__, "
-            "m.split_params.__module__)")
+            "m.split_params.__module__, m.render_sharded.__module__, "
+            "bvh.validate_bvh.__module__)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "myraytracer_tpu_torch.ops.render" in out.stdout
     assert "myraytracer_tpu_torch.parallel.shard_render" in out.stdout
+    assert "myraytracer_tpu_torch.ops.bvh" in out.stdout
 
 
 def test_camera_rays_match_reference():
