@@ -118,7 +118,30 @@ scan's kernels were not.
      within 1e-4);
  22. the port's inverse demo (examples/inverse_demo_torch.py) at its
      defaults on the card: each of its three fits lowers its loss, its
-     seconds.
+     seconds;
+ 23. the entry points replayed as CUDA graphs (ops/graphs.py) against
+     their eager runs under disable_graphs(), on office at 1920x1080
+     with "cluster" and "auto": render, render_aa (the budget sized as
+     phase 12 sizes it), the training step and five fit steps. The third
+     call of each (the fit's third step on) must replay a captured graph,
+     launch the same kernels as often as the eager call, and agree with
+     it: images bit-equal, the loss within rtol 1e-6, gradients within
+     REL_GRAD x max|eager|, fit losses within rtol 1e-5. Each is then
+     timed in turns, 10 (eager, graphed) pairs alternating which runs
+     first (medians, pairs won), with each path's device-busy time from
+     torch.profiler over three calls and its share of the median wall
+     time; the 1080p training step's max_memory_reserved eager and
+     graphed; o_03's and o_04's render_aa the same way, in 5 pairs, busy
+     time over one call.
+
+On a CUDA device the entry points replay CUDA graphs by default, so the
+phases before 23 run them graphed too: their launch counts are per
+replay (ops/graphs.py), and every run through the kernels' plain
+versions (cfg plain=True, which read the host by design) runs under
+disable_graphs(). Kernel times ("ms") are the card's own: 20 launches
+captured in one CUDA graph, replayed and timed by CUDA events
+(graph_ms); the plain versions' times are host-clocked launches
+(time_ms).
 
 Every kernel entry of the JSON summary carries its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -267,6 +290,33 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per call of the card's own time: ``reps`` calls
+    captured in one CUDA graph, replayed once warm, then three replays
+    between CUDA events. No host launch time lies between the kernels,
+    so a kernel shorter than its launch is timed, not its host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -389,7 +439,7 @@ def compare_kernels(data, camera, report, ptxas):
     all_pairs = bound(k2_bytes, OPS_SLAB * o4.shape[0] * bb.shape[0])
     report["phase1_exact"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: cc.phase1_exact(o4, d4, t0, act, bb), 10),
+        ms=graph_ms(lambda: cc.phase1_exact(o4, d4, t0, act, bb)),
         plain_ms=time_ms(lambda: cc.phase1_exact_plain(o4, d4, t0, act, bb), 2),
         **bound(k2_bytes, OPS_SLAB * (work["bundle_tests"] + work["slabs"])),
         all_pairs_bound_ms=all_pairs["bound_ms"],
@@ -422,7 +472,7 @@ def compare_kernels(data, camera, report, ptxas):
     err = close("cluster_scan_closest", tk[same], tp[same], RTOL_T)
     report["cluster_scan_closest"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: cc.cluster_scan(*scan_args), 10),
+        ms=graph_ms(lambda: cc.cluster_scan(*scan_args)),
         plain_ms=time_ms(lambda: cc.cluster_scan_plain(*scan_args), 2),
         **scan_bound(scan_args, (tk, ik), work))
     print(f"cluster_scan_closest: hits={float((ik >= 0).float().mean()):.4f} "
@@ -458,7 +508,7 @@ def compare_kernels(data, camera, report, ptxas):
     check(agree >= ID_AGREE, f"cluster_scan_anyhit: occlusion agreement {agree}")
     report["cluster_scan_anyhit"] = dict(
         max_abs_err=float((occ.float() - occ_p.float()).abs().max()),
-        ms=time_ms(lambda: cc.cluster_scan(*any_args), 10),
+        ms=graph_ms(lambda: cc.cluster_scan(*any_args)),
         plain_ms=time_ms(lambda: cc.cluster_scan_plain(*any_args), 2),
         **scan_bound(any_args, (t_any, oi), work))
     print(f"cluster_scan_anyhit: occluded={float(occ.float().mean()):.4f} "
@@ -618,7 +668,7 @@ def compare_pre(name, data, pre_args):
             check(n_bad == 0, f"{name}: {nm} differs on {n_bad} rays")
         else:
             err = max(err, close(f"{name}.{nm}", pre[i], pre_p[i]))
-    rep = dict(max_abs_err=err, ms=time_ms(lambda: cs.shade_pre(*pre_args), 20),
+    rep = dict(max_abs_err=err, ms=graph_ms(lambda: cs.shade_pre(*pre_args)),
                plain_ms=time_ms(lambda: cs.shade_pre_plain(*pre_args), 5),
                **bound(pre_bytes(pre_args, pre),
                        pre_ops(pre_args[3], pre[3], data.n_lights)))
@@ -646,7 +696,7 @@ def compare_phong(name, data, pack, o, d, kind, live_i, pre, shadow):
     ph_p = cs.shade_phong_plain(*args)
     err = max(close(f"{name}.{nm}", a, b)
               for nm, a, b in zip(("add", "o2", "d2", "w2"), ph, ph_p))
-    rep = dict(max_abs_err=err, ms=time_ms(lambda: cs.shade_phong(*args), 20),
+    rep = dict(max_abs_err=err, ms=graph_ms(lambda: cs.shade_phong(*args)),
                plain_ms=time_ms(lambda: cs.shade_phong_plain(*args), 5),
                **bound(nbytes(*args[:10], *args[12:], *ph)
                        + rows(pack.geom.mat16, pre[2][valid > 0])
@@ -689,7 +739,7 @@ def compare_segment_kernels(data, camera, report, ptxas, sass):
     seg_ops = R * (OPS_SEG_RAY + L * OPS_SEG_LIGHT)
     tri_rows = rows(pack.geom.tri_pack, ti[args[9]])
     report["seg_fwd"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: sg.segment_fwd(*args), 20),
+        max_abs_err=err, ms=graph_ms(lambda: sg.segment_fwd(*args)),
         plain_ms=time_ms(lambda: sg.segment_plain(*args), 3),
         **bound(nbytes(*args[:3], *args[4:], *fwd) + tri_rows, seg_ops))
     print(f"seg_fwd: {R} rays, hits {float(args[10].float().mean()):.4f}, "
@@ -743,9 +793,9 @@ def compare_segment_kernels(data, camera, report, ptxas, sass):
 
     report["seg_bwd"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: sg.segment_bwd(*args, *cots), 20),
+        ms=graph_ms(lambda: sg.segment_bwd(*args, *cots)),
         plain_ms=time_ms(lambda: sg.segment_bwd_plain(*args, *cots), 3),
-        index_add_ms=time_ms(row_scatter, 20),
+        index_add_ms=graph_ms(row_scatter),
         **bound(nbytes(*args[:3], *args[4:], *cots, *bwd) + tri_rows,
                 BWD_OVER_FWD * seg_ops))
     print(f"seg_bwd: max_abs_err={err}, worst diff {worst[REL_COT]:.3g} * "
@@ -769,6 +819,7 @@ def compare_training_paths(data, cam_small):
     import torch
 
     from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
     from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
 
     target = 0.9 * render(data, cam_small) + 0.02
@@ -776,7 +827,9 @@ def compare_training_paths(data, cam_small):
     for name, cfg in (("kernels", tr.TraceConfig()),
                       ("plain", tr.TraceConfig(plain=True)),
                       ("autograd", tr.TraceConfig(fused_shade_grad=False))):
-        runs[name] = render_loss_grad_image(data, cam_small, target, cfg=cfg)
+        with disable_graphs():
+            runs[name] = render_loss_grad_image(data, cam_small, target,
+                                                cfg=cfg)
     loss_k, g_k = runs["kernels"]
     check(len(g_k) == 23, f"{len(g_k)} gradient keys")
     for name in ("plain", "autograd"):
@@ -904,6 +957,7 @@ def gallery(scenes, dev, report):
     import torch
 
     from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
     from myraytracer_tpu_torch.ops.render import render_aa
     from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
     from myraytracer_tpu_torch.utils.image import read_png
@@ -916,8 +970,9 @@ def gallery(scenes, dev, report):
         img, secs, launches = timed(
             lambda: render_aa(data, cam, budget_frac=budget))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        plain = render_aa(data, cam, budget_frac=budget,
-                          cfg=tr.TraceConfig(plain=True))
+        with disable_graphs():
+            plain = render_aa(data, cam, budget_frac=budget,
+                              cfg=tr.TraceConfig(plain=True))
         diff = (img - plain).abs().amax(dim=-1)
         agree = float((diff <= 1e-4).float().mean())
         img_np = img.cpu().numpy()
@@ -1021,7 +1076,7 @@ def compare_walk(name, data, o, d, kw, ptxas, sass):
         both.any()) else 0.0
     check(bool(torch.equal(hit.t, hit_p.t)), f"{name}: t differs, max {err}")
     rep = dict(max_abs_err=err,
-               ms=time_ms(lambda: trv.traverse_bvh(data, o, d, **kw), 10),
+               ms=graph_ms(lambda: trv.traverse_bvh(data, o, d, **kw)),
                plain_ms=time_ms(lambda: trv.traverse_bvh_plain(data, o, d,
                                                                **kw), 1),
                **walk_bound(o.shape[0], work))
@@ -1090,8 +1145,8 @@ def compare_bvh_walk(data, camera, report, ptxas, sass):
     order, lb, n = cc.visit_lists(key)
     scan = (o4, d4, t0, act4, bb, cl_rows, order, lb, n, data.cl_first,
             data.cl_count, False)
-    k2 = time_ms(lambda: cc.phase1_exact(o4, d4, t0, act4, bb), 10)
-    k1 = time_ms(lambda: cc.cluster_scan(*scan), 10)
+    k2 = graph_ms(lambda: cc.phase1_exact(o4, d4, t0, act4, bb))
+    k1 = graph_ms(lambda: cc.cluster_scan(*scan))
     cl = cc.intersect_clusters(data, o, d, cl_rows=cl_rows)
     query = time_ms(lambda: cc.intersect_clusters(data, o, d,
                                                   cl_rows=cl_rows), 5)
@@ -1099,7 +1154,7 @@ def compare_bvh_walk(data, camera, report, ptxas, sass):
     hkey = cc.phase1_keys(data, so4, sd4, st0, sact4, True, True)
     hscan = (so4, sd4, st0, sact4, bb, cl_rows, *cc.visit_lists(hkey),
              data.cl_first, data.cl_count, True)
-    k1a = time_ms(lambda: cc.cluster_scan(*hscan), 10)
+    k1a = graph_ms(lambda: cc.cluster_scan(*hscan))
     cl_occ = cc.intersect_clusters(data, so, sd, t_max=st, any_hit=True,
                                    active=act, cl_rows=cl_rows)
     qa = time_ms(lambda: cc.intersect_clusters(
@@ -1270,6 +1325,7 @@ def cli_render(dev):
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
     from myraytracer_tpu_torch.models.sceneio import read_scene
     from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
     from myraytracer_tpu_torch.ops.render import render, render_aa
     from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
     from myraytracer_tpu_torch.utils.image import read_png, to_uint8
@@ -1307,7 +1363,9 @@ def cli_render(dev):
                   f"pixels within 1/255 of the direct call")
             check_path(f"cli render {name}", launches, BVH_FWD_KERNELS)
             if fn is render and name.startswith("demo"):
-                plain = render(data, sc.camera, cfg=auto._replace(plain=True))
+                with disable_graphs():
+                    plain = render(data, sc.camera,
+                                   cfg=auto._replace(plain=True))
                 agree = float(((direct - plain).abs().amax(dim=-1) <= 1e-4)
                               .float().mean())
                 check(agree >= GALLERY_AGREE, f"cli render {name}: {agree} "
@@ -1640,6 +1698,343 @@ def inverse_demo():
               f"demo {k}: the loss did not fall: {first} -> {last}")
 
 
+#: phase 23: (eager, graphed) pairs timed per office entry point and per
+#: golden, in turns; steps of each fit compared; profiled calls per
+#: device-busy reading
+GRAPH_PAIRS, GOLDEN_PAIRS, GRAPH_FIT_STEPS, BUSY_REPS = 10, 5, 5, 3
+#: phase 23's bars, graphed against eager: the loss, and the fit's losses
+#: (Adam steps on gradients summed by K6's atomics in a run-dependent
+#: order); images must be equal bit for bit
+GRAPH_LOSS_RTOL, GRAPH_FIT_RTOL = 1e-6, 1e-5
+
+
+def wall_ms(fn) -> float:
+    """Host milliseconds of one call that ends in a device synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def busy_split(runs, reps: int = BUSY_REPS) -> dict:
+    """Device-busy milliseconds per call of each run ``(label, fn,
+    eager)`` (eager: under disable_graphs), from one torch.profiler
+    window: the time of every kernel, copy and fill on the card (one
+    stream, so they do not overlap) that starts inside the run's host
+    range. Each run's calls end in a synchronise inside its range, and an
+    idle gap separates the ranges. ``"unassigned"``: device ms that fell
+    in no range."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn, eager in runs:
+            mode = disable_graphs() if eager else contextlib.nullcontext()
+            with mode, record_function("busy:" + label):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            time.sleep(0.005)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end, e.name[5:])
+             for e in events
+             if e.device_type != cuda and e.name.startswith("busy:")]
+    out = {label: 0.0 for label, _, _ in runs}
+    out["unassigned"] = 0.0
+    for e in events:
+        if e.device_type != cuda or e.name.startswith(("busy:", "mrt.")):
+            continue
+        t = e.time_range.start
+        label = next((n for a, b, n in spans if a <= t < b), "unassigned")
+        out[label] += e.time_range.elapsed_us() / 1e3
+    return {k: v / (1 if k == "unassigned" else reps) for k, v in out.items()}
+
+
+def in_turns(eager, graphed, pairs: int = GRAPH_PAIRS) -> dict:
+    """Host ms of ``pairs`` eager and graphed calls in turns (eager first
+    in even pairs, graphed first in odd ones): medians and the pairs the
+    graphed call won."""
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
+
+    def eager_ms():
+        with disable_graphs():
+            return wall_ms(eager)
+
+    ms = {"eager": [], "graphed": []}
+    for i in range(pairs):
+        order = (("eager", eager_ms), ("graphed", lambda: wall_ms(graphed)))
+        for mode, fn in (order if i % 2 == 0 else order[::-1]):
+            ms[mode].append(fn())
+    return {"eager_ms": statistics.median(ms["eager"]),
+            "graphed_ms": statistics.median(ms["graphed"]),
+            "wins": sum(g < e for g, e in zip(ms["graphed"], ms["eager"])),
+            "pairs": pairs}
+
+
+def add_busy(what: str, results: dict, fns: dict, shared: bool = True,
+             reps: int = BUSY_REPS) -> None:
+    """Each entry's device-busy ms, eager and graphed, from busy_split
+    (one profiler window for them all, or with ``shared=False`` one for
+    each: a window of seconds of work assigned device time to no range),
+    and its share of the median wall time; printed."""
+    runs = [(f"{name}/{mode}", fn, mode == "eager")
+            for name, fn in fns.items() for mode in ("eager", "graphed")]
+    if shared:
+        busy = busy_split(runs, reps)
+    else:
+        busy = {"unassigned": 0.0}
+        for run in runs:
+            one = busy_split([run], reps)
+            busy["unassigned"] += one.pop("unassigned")
+            busy.update(one)
+    for name, r in results.items():
+        for mode in ("eager", "graphed"):
+            r[f"{mode}_busy_ms"] = busy[f"{name}/{mode}"]
+            r[f"{mode}_busy_share"] = busy[f"{name}/{mode}"] / r[f"{mode}_ms"]
+        print(f"graphs {what} {name}: {turns_line(r)}")
+    print(f"graphs {what}: device ms in no profiled range "
+          f"{busy['unassigned']:.3f}")
+
+
+def turns_line(t: dict) -> str:
+    return (f"eager median {t['eager_ms']:.3f} ms, graphed median "
+            f"{t['graphed_ms']:.3f} ms (graphed faster in {t['wins']} of "
+            f"{t['pairs']} pairs); device busy eager {t['eager_busy_ms']:.3f}"
+            f" ms ({100 * t['eager_busy_share']:.1f}% of its wall), graphed "
+            f"{t['graphed_busy_ms']:.3f} ms "
+            f"({100 * t['graphed_busy_share']:.1f}%)")
+
+
+def launches_of(fn) -> tuple:
+    """(result, the launches of one call of fn, graph counts it moved)."""
+    import torch
+
+    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from myraytracer_tpu_torch.ops.graphs import COUNTS
+
+    torch.cuda.synchronize()
+    reset_launches()
+    before = dict(COUNTS)
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: v for k, v in LAUNCHES.items() if v},
+            {k: COUNTS[k] - before[k] for k in COUNTS})
+
+
+def graphed_vs_eager(what: str, fn, compare, pairs: int = GRAPH_PAIRS
+                     ) -> dict:
+    """One entry point eager (disable_graphs) and graphed: the graphed
+    call after a warm-up and a capture must be a replay, launch the same
+    kernels as many times as the eager call, and agree with it
+    (``compare(graphed, eager)`` checks and describes); then timed in
+    turns."""
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
+
+    with disable_graphs():
+        eager, l_eager, moved = launches_of(fn)
+    check(not any(moved.values()), f"{what}: an eager call used a graph")
+    fn()
+    fn()
+    got, l_graph, moved = launches_of(fn)
+    check(moved["replays"] > 0 and moved["captures"] == 0
+          and moved["warm_ups"] == 0, f"{what}: the third call was not a "
+          f"replay of a captured graph: {moved}")
+    check(l_graph == l_eager, f"{what}: launches graphed {l_graph}, eager "
+          f"{l_eager}")
+    agree = compare(got, eager)
+    print(f"graphs {what}: {agree}; launches per call {l_graph} (both); "
+          f"the third call replayed")
+    return dict(in_turns(fn, fn, pairs), launches=l_graph)
+
+
+def same_image(what):
+    import torch
+
+    def compare(got, want):
+        check(torch.equal(got, want), f"{what}: graphed image differs from "
+              f"eager by {float((got - want).abs().max())}")
+        return "image bit-equal to eager"
+    return compare
+
+
+def same_loss_grads(what):
+    def compare(got, want):
+        (loss, grads), (loss_e, grads_e) = got, want
+        rel = abs(float(loss) - float(loss_e)) / abs(float(loss_e))
+        check(rel <= GRAPH_LOSS_RTOL, f"{what}: loss rel diff {rel}")
+        check(set(grads) == set(grads_e) and len(grads) == 23,
+              f"{what}: gradient keys")
+        worst = max(close_scaled(f"{what}: grad {k}", grads[k], grads_e[k],
+                                 REL_GRAD)
+                    for k in grads if grads[k].numel())
+        return (f"loss {float(loss)} vs eager {float(loss_e)} (rel "
+                f"{rel:.3g}), worst gradient diff {worst:.3g} * max|a|")
+    return compare
+
+
+def graphed_fit(what, data, camera, cfg) -> tuple:
+    """GRAPH_FIT_STEPS InverseRenderer steps (mat_diffuse, light_color,
+    every pixel) graphed and eager from the same start: losses within
+    GRAPH_FIT_RTOL, steps 3 on replays of one captured graph (step 3
+    captures) launching as the eager steps do; then single steps of the
+    graphed renderer timed in turns. Returns (timings, one step)."""
+    import dataclasses
+
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
+    from myraytracer_tpu_torch.ops.render import render
+
+    xs, ys = (g.reshape(-1) for g in camera.pixel_grid(data.device))
+    with disable_graphs():
+        dark = render(dataclasses.replace(
+            data, mat_diffuse=data.mat_diffuse * 0.8), camera,
+            cfg=cfg).reshape(-1, 3)
+    names = ("mat_diffuse", "light_color")
+
+    def run():
+        inv = InverseRenderer(data, names, optimizer=adam(0.02),
+                              camera=camera, cfg=cfg)
+        steps = [launches_of(lambda: inv.fit_pixels(
+            xs, ys, dark, steps=1).losses[0]) for _ in range(GRAPH_FIT_STEPS)]
+        return inv, steps
+
+    with disable_graphs():
+        _, eager = run()
+    inv, graphed = run()
+    want = [{"warm_ups": 1, "captures": 0, "replays": 0}] * 2 + [
+        {"warm_ups": 0, "captures": 1, "replays": 1}] + [
+        {"warm_ups": 0, "captures": 0, "replays": 1}] * (GRAPH_FIT_STEPS - 3)
+    check([m for _, _, m in graphed] == want,
+          f"{what}: graph calls per step {[m for _, _, m in graphed]}")
+    le, lg = [x[0] for x in eager], [x[0] for x in graphed]
+    for a, b in zip(lg, le):
+        check(abs(a - b) <= GRAPH_FIT_RTOL * abs(b),
+              f"{what}: losses graphed {lg}, eager {le}")
+    check(lg[-1] < lg[0], f"{what}: the loss did not fall: {lg}")
+    check(graphed[-1][1] == eager[-1][1], f"{what}: launches of a step "
+          f"graphed {graphed[-1][1]}, eager {eager[-1][1]}")
+
+    def step():
+        return inv.fit_pixels(xs, ys, dark, steps=1)
+
+    print(f"graphs {what}: losses graphed {lg}, eager {le}; steps 3 to "
+          f"{GRAPH_FIT_STEPS} replayed; launches per step {graphed[-1][1]} "
+          f"(both)")
+    return dict(in_turns(step, step), launches=graphed[-1][1]), step
+
+
+def step_memory(step) -> dict:
+    """max_memory_reserved (GiB) of two eager calls of ``step`` and of
+    three graphed ones (warm-up, capture, replay) from an empty cache,
+    and what the graphed one keeps reserved after."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import graphs
+
+    out = {}
+    for mode in ("eager", "graphed"):
+        graphs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if mode == "eager":
+            with graphs.disable_graphs():
+                step()
+                step()
+        else:
+            for _ in range(3):
+                step()
+        torch.cuda.synchronize()
+        out[f"{mode}_peak_reserved_gib"] = (torch.cuda.max_memory_reserved()
+                                            / 2**30)
+        out[f"{mode}_reserved_after_gib"] = torch.cuda.memory_reserved() / 2**30
+    return out
+
+
+def graphed_paths(dev: str, tess: int = 10, full=(1920, 1080)) -> None:
+    """Phase 23: the entry points replayed as CUDA graphs (ops/graphs.py)
+    against disable_graphs() on office 1920x1080, "cluster" and "auto":
+    render, render_aa, the training step and the fit step; the 1080p
+    step's reserved memory both ways; o_03's and o_04's render_aa both
+    ways."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import graphs
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import (render, render_aa,
+                                                  render_loss_grad_image,
+                                                  sized_aa_budget)
+    from myraytracer_tpu_torch.scenes.golden import (GOLDEN_SCENES,
+                                                     scene_08_office)
+
+    t0 = time.perf_counter()
+    scene = scene_08_office(tess=tess, resolution=full)
+    data, camera = scene.build(device=dev), scene.camera
+    summary = {}
+    for method in ("cluster", "auto"):
+        cfg = tr.TraceConfig(tri_method=method)
+        graphs.clear()
+        with graphs.disable_graphs():
+            img1 = render(data, camera, cfg=cfg)
+        budget, _ = sized_aa_budget(img1)
+        target = 0.9 * img1 + 0.02
+        where = f"office {full[0]}x{full[1]} {method}"
+        fns = {
+            "render": lambda: render(data, camera, cfg=cfg),
+            "render_aa": lambda: render_aa(data, camera, cfg=cfg,
+                                           budget_frac=budget),
+            "step": lambda: render_loss_grad_image(data, camera, target,
+                                                   cfg=cfg)}
+        summary[method] = {
+            "render": graphed_vs_eager(f"{where} render", fns["render"],
+                                       same_image(f"{where} render")),
+            "render_aa": graphed_vs_eager(
+                f"{where} render_aa (budget {budget})", fns["render_aa"],
+                same_image(f"{where} render_aa")),
+            "step": graphed_vs_eager(
+                f"{where} training step", fns["step"],
+                same_loss_grads(f"{where} training step"))}
+        summary[method]["fit"], fns["fit"] = graphed_fit(
+            f"{where} fit step", data, camera,
+            cfg._replace(texture_filter="bilinear"))
+        add_busy(where, summary[method], fns)
+        if method == "cluster":
+            mem = step_memory(fns["step"])
+        del img1, target, fns
+    del data
+    goldens, fns = {}, {}
+    for name in ("o_03_mirror", "o_04_molecule"):
+        builder, budget = GOLDEN_SCENES[name]
+        sc = builder()
+        gdata, cam = sc.build(device=dev), sc.camera
+        fns[name] = (lambda d=gdata, c=cam, b=budget:
+                     render_aa(d, c, budget_frac=b))
+        torch.cuda.reset_peak_memory_stats()
+        goldens[name] = graphed_vs_eager(
+            f"{name} {cam.width}x{cam.height} render_aa (budget {budget})",
+            fns[name], same_image(f"{name} render_aa"), GOLDEN_PAIRS)
+        goldens[name]["peak_reserved_gib"] = (torch.cuda.max_memory_reserved()
+                                              / 2**30)
+    add_busy("goldens", goldens, fns, shared=False, reps=1)
+    summary.update(goldens)
+    del fns
+    graphs.clear()
+    print(f"graphs: memory of the office {full[0]}x{full[1]} training step "
+          f"(cluster), GiB: {mem}")
+    print("graphs summary: " + json.dumps(summary))
+    print(f"graphs: phase 23 took {time.perf_counter() - t0:.2f} s")
+
+
 def build_gallery(dev):
     """The ten goldens at their golden resolution, and the mixed scene at
     1920x1080, on the card: name -> (Scene, SceneData)."""
@@ -1664,6 +2059,7 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
 
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
     from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
     from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
     from myraytracer_tpu_torch.scenes.golden import scene_08_office
 
@@ -1683,7 +2079,8 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
 
     cam_small = scene_08_office(tess=tess, resolution=small).camera
     img_k = render(data, cam_small)
-    img_p = render(data, cam_small, cfg=tr.TraceConfig(plain=True))
+    with disable_graphs():
+        img_p = render(data, cam_small, cfg=tr.TraceConfig(plain=True))
     diff = (img_k - img_p).abs().amax(dim=-1)
     frac = float((diff <= 1e-4).float().mean())
     print(f"render {small[0]}x{small[1]}: kernels vs plain: {frac:.6f} of "
@@ -1763,6 +2160,7 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     sharded_office(dev, tess, full)
     native_builder(dev)
     inverse_demo()
+    graphed_paths(dev, tess, full)
     return report
 
 

@@ -27,8 +27,12 @@ Each program runs once untimed first (the first call of a process also
 builds the CUDA kernels). ``*_s`` is the fastest of three calls, each a
 host clock around the call and a device synchronise; ``*_s_pipelined``
 the fastest of two batches of five calls with one synchronise a batch,
-per call. ``vs_baseline`` holds the rate against the reference
-renderer's published office number, 5.3 s for 1920x1080 (its forward;
+per call. On the card each program replays a CUDA graph
+(ops/graphs.py): the untimed call is its eager warm-up, the first timed
+call captures it and replays it, the others replay it, so the fastest
+of three and the pipelined batches time replays. ``vs_baseline`` holds
+the rate against the reference renderer's published office number, 5.3
+s for 1920x1080 (its forward;
 ``aa_vs_baseline`` against its 5.31 s with supersampling). ``device`` is
 the card's name and power limit as nvidia-smi reports them, or "cpu".
 

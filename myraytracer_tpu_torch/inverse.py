@@ -22,6 +22,16 @@ loss, every parameter's gradient and ``sum(w)``, and both are divided by
 ``3 * sum(w)`` before the optimizer step (Adam is not scale-free at its
 epsilon). The optimizer state stays replicated, so every rank takes the
 same step; a checkpoint is written by mesh rank 0.
+
+Without a mesh, one step on a CUDA device is one CUDA graph
+(ops/graphs.py), as the reference jits its whole step with the optimizer
+update: merge, refit, rays, topology, shading, backward and
+``optimizer.step()`` are captured once and replayed, reading the
+parameters and the optimizer state in place. The optimizer must be
+capturable (``adam()`` builds Adam with ``capturable=True`` for CUDA
+parameters); one that is not raises at the capture, and
+``graphs.disable_graphs()`` runs it eagerly. With a mesh every step runs
+eagerly: its collectives go through gloo or NCCL outside any graph.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.ops.refit import refit_accel
 from myraytracer_tpu_torch.parallel.mesh import mesh_rank
@@ -72,8 +83,14 @@ class FitResult:
 def adam(lr: float = 1e-2) -> Callable[[List[torch.Tensor]],
                                        torch.optim.Optimizer]:
     """An optimizer factory for :class:`InverseRenderer`: Adam, whose update
-    ``lr * m_hat / (sqrt(v_hat) + 1e-8)`` is ``optax.adam``'s."""
-    return lambda params: torch.optim.Adam(params, lr=lr)
+    ``lr * m_hat / (sqrt(v_hat) + 1e-8)`` is ``optax.adam``'s. For CUDA
+    parameters it is built with ``capturable=True`` (its step count on
+    the device), so that the fit step can be captured as a CUDA graph."""
+    def make(params):
+        cuda = bool(params) and params[0].is_cuda
+        return torch.optim.Adam(params, lr=lr, capturable=cuda)
+
+    return make
 
 
 class InverseRenderer:
@@ -91,6 +108,7 @@ class InverseRenderer:
             rays over its ranks and sums the gradients across them,
             which is the single-device fit up to fp32 rounding. Every
             rank of the mesh makes the same calls with the same data.
+            Sharded steps run eagerly (no CUDA graph).
         camera: a models.camera.Camera. Attaching one exposes the
             ``cam_*`` leaves; use :meth:`fit_pixels` so the rays follow
             the current pose every step.
@@ -154,7 +172,35 @@ class InverseRenderer:
     def _step(self, a, b, target, w, pixel_mode: bool) -> torch.Tensor:
         """One optimizer step on rays (a, b) = (o, d), or pixel
         coordinates (xs, ys) in pixel mode, and with a mesh this rank's
-        share of them with its weights ``w``; returns the loss."""
+        share of them with its weights ``w``; returns the loss. Without a
+        mesh, one CUDA graph on the card (:func:`graphs.run`), keyed by
+        everything the step reads: the scene, the camera, the parameters,
+        the optimizer's state and settings, the rays and the target."""
+        if self.mesh is not None:
+            return self._step_body(a, b, target, w, pixel_mode)
+        static, held = graphs.scene_inputs(self.base_scene)
+        held += [a, b, target] + list(self.params.values())
+        if self.camera is not None:
+            held += [self.camera.eye, self.camera.center, self.camera.up,
+                     self.camera.fovy]
+        opt = self.optimizer
+        for state in opt.state.values():
+            held += [v for v in state.values() if isinstance(v, torch.Tensor)]
+        settings = tuple(
+            tuple((k, v) for k, v in g.items()
+                  if k != "params" and not isinstance(v, torch.Tensor))
+            for g in opt.param_groups)
+        size = (None if self.camera is None
+                else (self.camera.width, self.camera.height))
+        static = (static, self.param_names, self.cfg, pixel_mode, size,
+                  type(opt), settings)
+        return graphs.run(
+            "fit_step",
+            lambda: self._step_body(a, b, target, w, pixel_mode),
+            self.base_scene.device, static=static, held=held)
+
+    def _step_body(self, a, b, target, w, pixel_mode: bool) -> torch.Tensor:
+        """The body of :meth:`_step`."""
         p = self.params
         scene = merge_params(self.base_scene, _scene_leaves(p))
         if "vertex_pos" in self.param_names:

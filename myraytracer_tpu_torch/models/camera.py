@@ -40,10 +40,24 @@ class Camera:
         return Camera(f32(eye), f32(center), f32(up), f32(fovy), int(width),
                       int(height))
 
+    def packed(self) -> torch.Tensor:
+        """[10] float32 on the camera's device: eye, center, up, fovy. The
+        camera's values in one tensor, so that they reach another device
+        in one copy (:meth:`to`, the entry points' staged input)."""
+        return torch.cat([self.eye.reshape(3), self.center.reshape(3),
+                          self.up.reshape(3), self.fovy.reshape(1)]
+                         ).to(torch.float32)
+
+    @staticmethod
+    def from_packed(vec: torch.Tensor, width: int, height: int) -> "Camera":
+        """The camera whose :meth:`packed` is ``vec`` (views of it)."""
+        return Camera(vec[0:3], vec[3:6], vec[6:9], vec[9], int(width),
+                      int(height))
+
     def to(self, device) -> "Camera":
-        return dataclasses.replace(
-            self, eye=self.eye.to(device), center=self.center.to(device),
-            up=self.up.to(device), fovy=self.fovy.to(device))
+        """The camera on ``device``: one copy of :meth:`packed`."""
+        return Camera.from_packed(self.packed().to(device), self.width,
+                                  self.height)
 
     def _basis(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         view = vm.normalize(self.center - self.eye)

@@ -19,6 +19,14 @@ against a target image and its gradient with respect to every float
 scene parameter: refit, a gradient-free topology pass over every tile,
 then the differentiable shading replay of each tile, summed, and one
 backward over the parameters.
+
+On a CUDA device each entry point replays a CUDA graph
+(ops/graphs.py, the counterpart of the reference's jit): ``render`` and
+``render_aa``'s pass 1 are one graph, the AA refine another, and each
+training step one graph of forward and backward. The camera reaches the
+graph as a staged input, so a new camera of the same size replays the
+same graph. ``graphs.disable_graphs()`` runs them eagerly; CPU tensors
+always do.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch
 import torch.utils.checkpoint
 
 from myraytracer_tpu_torch.models.camera import Camera
-from myraytracer_tpu_torch.ops import shade
+from myraytracer_tpu_torch.ops import graphs, shade
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.ops.refit import refit_accel
 from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
@@ -105,6 +113,24 @@ def primary_rays_blocked(camera: Camera, device, block: int = BLOCK):
     return o.contiguous(), d.contiguous()
 
 
+def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
+             staged=()):
+    """``fn(camera, *staged)`` through :func:`graphs.run`: the scene's
+    tensors and ``held`` read in place, the camera (packed) and
+    ``staged`` copied into the graph's buffers, keyed by the scene's
+    static fields, the camera's size and ``static``."""
+    W, H = camera.width, camera.height
+    scene_static, scene_held = graphs.scene_inputs(scene)
+
+    def body(cam, *rest):
+        return fn(Camera.from_packed(cam, W, H), *rest)
+
+    return graphs.run(name, body, scene.device,
+                      static=(scene_static, W, H) + tuple(static),
+                      held=scene_held + list(held),
+                      staged=(camera.packed(),) + tuple(staged))
+
+
 def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
            tile: Optional[int] = None, clamp: bool = True) -> torch.Tensor:
     """Primary 1-spp render -> [H, W, 3] on the scene's device.
@@ -112,8 +138,16 @@ def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     Colors are clamped to <= 1 per pixel like the reference kernel unless
     ``clamp=False``, which returns the unclamped linear image. ``tile``
     (rays, rounded down to whole screen blocks) traces the frame in
-    batches; None traces it in one.
+    batches; None traces it in one. One CUDA graph on the card.
     """
+    return _graphed("render",
+                    lambda cam: _render(scene, cam, cfg, tile, clamp),
+                    scene, camera, static=(cfg, tile, clamp))
+
+
+def _render(scene, camera: Camera, cfg: tr.TraceConfig, tile: Optional[int],
+            clamp: bool) -> torch.Tensor:
+    """The body of :func:`render`."""
     H, W = camera.height, camera.width
     b = BLOCK
     Hp = -(-H // b) * b
@@ -164,6 +198,18 @@ def sized_aa_budget(img1: torch.Tensor) -> Tuple[float, float]:
     return max(0.01, math.ceil(frac * 1.1 / 0.0025) * 0.0025), frac
 
 
+#: the AA pass's probe direction (+x), one constant per device: made on
+#: the first (eager) call of a key, never inside a graph capture
+_PROBE_DIR: Dict[torch.device, torch.Tensor] = {}
+
+
+def _probe_dir(device: torch.device) -> torch.Tensor:
+    d = _PROBE_DIR.get(device)
+    if d is None:
+        d = _PROBE_DIR[device] = torch.tensor([1.0, 0.0, 0.0], device=device)
+    return d
+
+
 def _aa_rays(camera: Camera, img1, subp: int, threshold: float,
              budget_frac: float):
     """The AA pass's pixel selection and subpixel rays.
@@ -197,7 +243,7 @@ def _aa_rays(camera: Camera, img1, subp: int, threshold: float,
     o, d = camera.primary_rays(xs, ys)
     sel_ray = sel.repeat_interleave(subp * subp)[:, None]
     o = torch.where(sel_ray, o, torch.full_like(o, 3e18))
-    d = torch.where(sel_ray, d, d.new_tensor([1.0, 0.0, 0.0]).expand_as(d))
+    d = torch.where(sel_ray, d, _probe_dir(d.device).expand_as(d))
     return top_idx, sel, o.contiguous(), d.contiguous()
 
 
@@ -216,7 +262,21 @@ def _aa_refine(scene, camera: Camera, img1,
                tile: Optional[int] = None, subp: int = AA_SUBP,
                threshold: float = AA_THRESHOLD, budget_frac: float = 0.10
                ) -> torch.Tensor:
-    """The adaptive-supersampling pass over a finished pass-1 image."""
+    """The adaptive-supersampling pass over a finished pass-1 image: one
+    CUDA graph on the card, with ``img1`` staged (copied into the graph's
+    buffer) like the camera."""
+    return _graphed(
+        "aa_refine",
+        lambda cam, img: _aa_refine_body(scene, cam, img, cfg, tile, subp,
+                                         threshold, budget_frac),
+        scene, camera, static=(cfg, tile, subp, threshold, budget_frac),
+        staged=(img1,))
+
+
+def _aa_refine_body(scene, camera: Camera, img1, cfg: tr.TraceConfig,
+                    tile: Optional[int], subp: int, threshold: float,
+                    budget_frac: float) -> torch.Tensor:
+    """The body of :func:`_aa_refine`."""
     top_idx, sel, o, d = _aa_rays(camera, img1, subp, threshold, budget_frac)
     # the subray batch is screen-scattered: its any-hit queries take the
     # exact phase-1 (K2), where the segment hulls would be loose
@@ -234,7 +294,9 @@ def render_aa(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     ``budget_frac`` bounds the supersampled pixels as a fraction of the
     image; above-threshold pixels beyond the budget (smallest deviations
     first) keep their pass-1 colour. ``tile`` (rays) bounds each pass's
-    trace batch; None traces each pass in one.
+    trace batch; None traces each pass in one. Two CUDA graphs on the
+    card, as the reference's two jits: pass 1 (:func:`render`'s) and the
+    refine.
     """
     img1 = render(scene, camera, cfg, tile)
     return _aa_refine(scene, camera, img1, cfg, tile, subp, threshold,
@@ -312,8 +374,11 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
             if fused:
                 part = tile_loss(*args)
             else:
+                # the replay draws no random numbers, and a capture
+                # cannot stash the CUDA generator's state
                 part = torch.utils.checkpoint.checkpoint(
-                    tile_loss, *args, use_reentrant=False)
+                    tile_loss, *args, use_reentrant=False,
+                    preserve_rng_state=False)
             total = part if total is None else total + part
     names = list(params)
     with rf("mrt.backward"):
@@ -333,12 +398,22 @@ def render_loss_grad(scene, o: torch.Tensor, d: torch.Tensor,
     o, d, target [R, 3]. Returns (loss, grads), grads keyed like
     :func:`split_params`. ``tile`` (rays) bounds the replay's memory; None
     runs the batch as one tile. For whole images prefer
-    :func:`render_loss_grad_image` (block-coherent tiles).
+    :func:`render_loss_grad_image` (block-coherent tiles). One CUDA
+    graph of forward and backward on the card, with o, d and target read
+    in place; ``restore_mirror_chain`` runs before it, and its
+    ``live_depth`` is part of the graph's key (the reference's
+    ``_MirrorAwareJit``).
     """
     scene = restore_mirror_chain(scene)
-    w = torch.ones(o.shape[0], dtype=o.dtype, device=o.device)
-    return _loss_grad_tiled(scene, o, d, target, w, cfg,
-                            o.shape[0] if tile is None else tile)
+    tile = o.shape[0] if tile is None else tile
+
+    def body():
+        w = torch.ones(o.shape[0], dtype=o.dtype, device=o.device)
+        return _loss_grad_tiled(scene, o, d, target, w, cfg, tile)
+
+    static, held = graphs.scene_inputs(scene)
+    return graphs.run("render_loss_grad", body, scene.device,
+                      static=(static, cfg, tile), held=held + [o, d, target])
 
 
 def render_loss_grad_image(scene, camera: Camera, target: torch.Tensor,
@@ -351,9 +426,21 @@ def render_loss_grad_image(scene, camera: Camera, target: torch.Tensor,
     (rays, rounded down to whole screen blocks) cuts the frame into
     replay tiles; None runs it as one. Returns (loss, grads), grads keyed
     like :func:`split_params`; a parameter the loss does not reach gets
-    zeros.
+    zeros. One CUDA graph of forward and backward on the card, with the
+    target read in place and the camera staged; ``restore_mirror_chain``
+    runs before it, and its ``live_depth`` is part of the graph's key
+    (the reference's ``_MirrorAwareJit``).
     """
     scene = restore_mirror_chain(scene)
+    return _graphed(
+        "render_loss_grad_image",
+        lambda cam: _loss_grad_image(scene, cam, target, cfg, tile),
+        scene, camera, static=(cfg, tile), held=(target,))
+
+
+def _loss_grad_image(scene, camera: Camera, target: torch.Tensor,
+                     cfg: tr.TraceConfig, tile: Optional[int]):
+    """The body of :func:`render_loss_grad_image`."""
     H, W = camera.height, camera.width
     b = BLOCK
     Hp = -(-H // b) * b

@@ -35,7 +35,13 @@ replay of ``shade.resolve_hit`` + :func:`lighting_from_mask`. This is a
 choice by scene content, the reference's rule, not a fallback: K5/K6
 cover what the reference's K5/K6 cover.
 
-A segment in which no ray is alive any more is skipped.
+A segment in which no ray is alive any more yields its carry unchanged,
+as the reference's ``lax.cond`` does; the condition is a 0-d tensor and
+the choice a ``torch.where`` on the device (:func:`_select`), so no
+segment reads a value back to the host and the entry points can be
+captured as CUDA graphs (ops/graphs.py). The segment itself runs either
+way. Segment 0 of a fresh carry has every ray alive (weight 1), so it
+takes no select.
 """
 
 from __future__ import annotations
@@ -342,6 +348,14 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
     return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add), record
 
 
+def _select(pred: torch.Tensor, new, old):
+    """``new`` where the 0-d bool ``pred`` holds, else ``old``, field by
+    field: the device-side ``lax.cond`` of a segment. ``new`` and ``old``
+    are both a :class:`Bounce` or both a record tuple."""
+    out = [torch.where(pred, a, b) for a, b in zip(new, old)]
+    return type(old)(*out) if isinstance(old, Bounce) else tuple(out)
+
+
 def trace(scene, o: torch.Tensor, d: torch.Tensor,
           cfg: TraceConfig = TraceConfig(), pack: Optional[TracePack] = None
           ) -> torch.Tensor:
@@ -357,10 +371,10 @@ def trace(scene, o: torch.Tensor, d: torch.Tensor,
     R = o.shape[0]
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=o.device),
                    color=torch.zeros((R, 3), device=o.device))
-    for _ in range(scene.n_segments):
-        if not bool((carry.weight > 0.0).any()):
-            break
-        carry, _ = segment_step(scene, pack, carry, cfg)
+    for s in range(scene.n_segments):
+        nxt, _ = segment_step(scene, pack, carry, cfg)
+        carry = nxt if s == 0 else _select((carry.weight > 0.0).any(), nxt,
+                                           carry)
     return carry.color
 
 
@@ -371,7 +385,8 @@ def trace_topology(scene, o: torch.Tensor, d: torch.Tensor,
     """Gradient-free topology pass: the segments of :func:`trace`,
     recording per segment which primitive each ray hit, whether it was a
     live hit or a live miss, and the shadow mask per light. Segments after
-    every ray died record no hits (kind KIND_MISS, idx 0, all False)."""
+    every ray died record no hits (kind KIND_MISS, idx 0, all False), the
+    reference's ``dead`` record."""
     if pack is None:
         pack = pack_trace(scene, cfg)
     R, L = o.shape[0], scene.n_lights
@@ -384,11 +399,12 @@ def trace_topology(scene, o: torch.Tensor, d: torch.Tensor,
             torch.zeros(R, dtype=torch.bool, device=dev),
             torch.zeros((L, R), dtype=torch.bool, device=dev))
     records = []
-    for _ in range(scene.n_segments):
-        if bool((carry.weight > 0.0).any()):
-            carry, rec = segment_step(scene, pack, carry, cfg)
-        else:
-            rec = dead
+    for s in range(scene.n_segments):
+        nxt, rec = segment_step(scene, pack, carry, cfg)
+        if s:
+            alive = (carry.weight > 0.0).any()
+            nxt, rec = _select(alive, nxt, carry), _select(alive, rec, dead)
+        carry = nxt
         records.append(rec)
     return TraceTopo(*(torch.stack(x) for x in zip(*records)))
 
@@ -462,8 +478,10 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     occlusion query. ``trace_shade(scene, o, d, trace_topology(scene, o,
     d))`` equals ``trace(scene, o, d)``. ``geom`` (the packed rows) can be
     shared by the tiles of one pass, so that its gather backward runs
-    once. Segments with no live ray are skipped. The fused K5/K6 segment
-    or the autograd replay by :meth:`TraceConfig.fused_grad`.
+    once. A segment with no live hit or miss yields its carry unchanged
+    (a device-side select); segment 0 of a topology from
+    :func:`trace_topology` always has every ray live. The fused K5/K6
+    segment or the autograd replay by :meth:`TraceConfig.fused_grad`.
     """
     fused = cfg.validate().fused_grad(scene)
     if geom is None:
@@ -474,11 +492,10 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     for s in range(topo.kind.shape[0]):
         rec = (topo.kind[s], topo.idx[s], topo.hit[s], topo.miss[s],
                topo.shadow[s])
-        if not bool((rec[2] | rec[3]).any()):
-            continue
         if fused:
-            carry = _fused_segment(scene, geom, carry, rec, cfg.plain)
+            nxt = _fused_segment(scene, geom, carry, rec, cfg.plain)
         else:
-            carry = _replay_segment(scene, geom, carry, rec,
-                                    cfg.texture_filter)
+            nxt = _replay_segment(scene, geom, carry, rec, cfg.texture_filter)
+        carry = nxt if s == 0 else _select((rec[2] | rec[3]).any(), nxt,
+                                           carry)
     return carry.color

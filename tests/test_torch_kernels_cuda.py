@@ -33,12 +33,14 @@ from myraytracer_tpu_torch.models.mesh import FLAT, TriangleMesh
 from myraytracer_tpu_torch.models.scene import Scene
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
+from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import shade, tracer as tr
 from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops import traverse as trv
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.ops.render import (primary_rays_blocked, render,
-                                               render_aa)
+                                               render_aa,
+                                               render_loss_grad_image)
 from myraytracer_tpu_torch.scenes import kinds
 from myraytracer_tpu_torch.scenes.golden import scene_08_office
 
@@ -650,3 +652,158 @@ def test_bvh_walk_wrapper_rejects_bad_inputs(cuda):
                      False)
     with pytest.raises(ValueError, match="nodes"):
         trv.bvh_walk(o, d, t0, act, nodes.cpu(), links, tri, False)
+
+
+# --- CUDA graphs (ops/graphs.py): graphed entry points against eager ------
+
+def _graph_office(dev, w=256, h=160):
+    s = scene_08_office(tess=4, resolution=(w, h))
+    return s.build(device=dev), s.camera
+
+
+def _three_calls(fn):
+    """Warm-up, capture, replay: the third call's result, its launches and
+    the graph calls it made."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    before = dict(graphs.COUNTS)
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: v for k, v in LAUNCHES.items() if v},
+            {k: graphs.COUNTS[k] - before[k] for k in before})
+
+
+def _eager(fn):
+    with graphs.disable_graphs():
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {k: v for k, v in LAUNCHES.items() if v}
+
+
+@pytest.mark.parametrize("method", ["cluster", "auto"])
+@pytest.mark.parametrize("entry", ["render", "render_aa", "loss_grad", "fit"])
+def test_graphed_entry_points_equal_eager(cuda, method, entry):
+    """The third call replays a captured graph, launches what the eager
+    call launches and agrees with it: images bit-equal, the loss within
+    rtol 1e-6 and gradients within 5e-4 x max|eager| (K6 sums with
+    atomics in a run-dependent order), fit losses within rtol 1e-5."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+
+    graphs.clear()
+    data, cam = _graph_office(cuda)
+    cfg = tr.TraceConfig(tri_method=method)
+    tgt = 0.9 * render(data, cam, cfg) + 0.02
+    if entry == "fit":
+        xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+
+        def fit():
+            inv = InverseRenderer(data, ("mat_diffuse", "light_color"),
+                                  optimizer=adam(0.02), camera=cam, cfg=cfg)
+            return [inv.fit_pixels(xs, ys, tgt.reshape(-1, 3),
+                                   steps=1).losses[0] for _ in range(4)]
+
+        want, _ = _eager(fit)
+        got = fit()
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        assert graphs.captured() >= 1
+        return
+    fn = {"render": lambda: render(data, cam, cfg),
+          "render_aa": lambda: render_aa(data, cam, cfg, budget_frac=0.05),
+          "loss_grad": lambda: render_loss_grad_image(data, cam, tgt, cfg)
+          }[entry]
+    want, l_eager = _eager(fn)
+    got, l_graph, moved = _three_calls(fn)
+    assert moved["replays"] >= 1 and moved["captures"] == 0
+    assert moved["warm_ups"] == 0
+    assert l_graph == l_eager
+    if entry == "loss_grad":
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+        for k in want[1]:
+            _close_scaled(got[1][k], want[1][k], k, rel=5e-4)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_graph_launches_are_counted_per_replay(cuda):
+    graphs.clear()
+    data, cam = _graph_office(cuda)
+    _, l_eager = _eager(lambda: render(data, cam))
+    render(data, cam)
+    render(data, cam)
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    for _ in range(3):
+        render(data, cam)
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        k: 3 * v for k, v in l_eager.items()}
+
+
+def test_graphs_follow_camera_and_in_place_parameters(cuda):
+    import dataclasses
+
+    graphs.clear()
+    data, cam = _graph_office(cuda)
+    for _ in range(3):
+        render(data, cam)
+    moved = dataclasses.replace(cam, eye=cam.eye + 0.2,
+                                fovy=cam.fovy - 5.0)
+    before = graphs.COUNTS["captures"]
+    got = render(data, moved)
+    assert graphs.COUNTS["captures"] == before       # the same graph
+    want, _ = _eager(lambda: render(data, moved))
+    assert torch.equal(got, want) and not torch.equal(got, render(data, cam))
+    data.mat_diffuse.mul_(0.5)
+    got = render(data, cam)
+    want, _ = _eager(lambda: render(data, cam))
+    assert torch.equal(got, want)
+
+
+def test_graphed_frames_do_not_alias(cuda):
+    graphs.clear()
+    data, cam = _graph_office(cuda)
+    frames = [render(data, cam) for _ in range(4)]
+    keep = frames[2].clone()
+    assert len({f.data_ptr() for f in frames}) == 4
+    frames[3].zero_()
+    render(data, cam)
+    assert torch.equal(frames[2], keep)
+
+
+def test_capture_of_a_host_read_raises(cuda):
+    """No eager retry: the capture raises, naming the entry point and the
+    line that read the host, and so does the next call."""
+    graphs.clear()
+    x = torch.arange(6.0, device=cuda)
+
+    def bad():
+        return x * float(x.sum())
+
+    graphs.run("bad", bad, cuda, held=[x])          # the eager warm-up
+    for _ in range(2):
+        with pytest.raises(graphs.GraphCaptureError,
+                           match=r"capture of bad failed at .*in bad"):
+            graphs.run("bad", bad, cuda, held=[x])
+    assert graphs.captured() == 0
+
+
+def test_uncapturable_optimizer_raises_at_capture(cuda):
+    from myraytracer_tpu_torch.inverse import InverseRenderer
+
+    graphs.clear()
+    data, cam = _graph_office(cuda, 64, 64)
+    inv = InverseRenderer(data, ("mat_diffuse",),
+                          optimizer=lambda p: torch.optim.Adam(p, lr=0.01),
+                          camera=cam)
+    xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+    tgt = torch.zeros((xs.numel(), 3), device=cuda)
+    inv.fit_pixels(xs, ys, tgt, steps=2)            # two eager warm-ups
+    with pytest.raises(graphs.GraphCaptureError, match="disable_graphs"):
+        inv.fit_pixels(xs, ys, tgt, steps=1)
+    with graphs.disable_graphs():
+        assert np.isfinite(inv.fit_pixels(xs, ys, tgt, steps=1).losses).all()

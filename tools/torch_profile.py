@@ -2,15 +2,19 @@
 """Profile the PyTorch/CUDA port's office render or training step on one GPU.
 
     python3 tools/torch_profile.py [--fwd-bwd | --scene NAME]
-        [--tri-method {cluster,bvh,brute}] [--trace out.json]
+        [--tri-method {cluster,bvh,brute}] [--eager] [--trace out.json]
 
-Runs office (tess 10, 1920x1080) once to build and warm up, then five
-times under torch.profiler, and prints: the wall time per run (the
-profiler inflates it), the device-busy time (summed kernel time; one
-stream, so kernels do not overlap), and device time per kernel, largest
-first. By default the run is the forward render; ``--fwd-bwd`` profiles
+Runs office (tess 10, 1920x1080) twice to build, warm up and capture its
+CUDA graph, then five times under torch.profiler, and prints: the wall
+time per run (the profiler inflates the host side of an eager run), the
+device-busy time (summed kernel time; one stream, so kernels do not
+overlap) and its share of the wall time, and device time per kernel,
+largest first. The entry points replay CUDA graphs (ops/graphs.py) by
+default; ``--eager`` runs them under ``disable_graphs()``, the launches
+one by one. By default the run is the forward render; ``--fwd-bwd`` profiles
 the training step ``render_loss_grad_image`` instead (loss against a
-target image and all 23 parameter gradients); ``--scene NAME`` profiles
+target image and all 23 parameter gradients; eager, its profiler ranges
+split it by phase, while graphed it is one replay); ``--scene NAME`` profiles
 ``render_aa`` of that golden scene (e.g. o_04_molecule) at its golden
 resolution and budget. ``--tri-method`` picks the triangle method
 (``TraceConfig.tri_method``; default "cluster", the scan; "bvh" the walk
@@ -20,6 +24,7 @@ K7). ``--trace`` also writes a Chrome trace. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -65,6 +70,8 @@ def main() -> int:
     ap.add_argument("--tri-method", default="cluster",
                     choices=("cluster", "bvh", "brute", "auto"),
                     help="the triangle method (TraceConfig.tri_method)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run eagerly (disable_graphs), not graph replays")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
     reps, tess, width, height = 5, 10, 1920, 1080
@@ -76,6 +83,7 @@ def main() -> int:
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
     from myraytracer_tpu_torch.ops.render import (render, render_aa,
                                                    render_loss_grad_image)
     from myraytracer_tpu_torch.ops.tracer import TraceConfig
@@ -103,15 +111,18 @@ def main() -> int:
     else:
         def step():
             return render(data, scene.camera, cfg=cfg)
-    step()
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            step()
+    mode = disable_graphs() if args.eager else contextlib.nullcontext()
+    with mode:
+        step()          # eager: the warm-up; graphed: the key's warm-up
+        step()          # graphed: the capture and its first replay
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) / reps
 
     # device-side kernel events only (an aten op's row repeats its
     # kernels' time; a phase range shows on the device as a span)
@@ -131,11 +142,12 @@ def main() -> int:
     where = args.scene or f"office tess {tess}"
     print(f"{gpu}; {where} {width}x{height}, {data.n_tris} triangles, "
           f"{data.n_spheres + data.n_planes + data.n_cylinders} analytic "
-          f"primitives; tri_method {args.tri_method}; profiled: {what}")
+          f"primitives; tri_method {args.tri_method}; profiled: {what}, "
+          f"{'eager' if args.eager else 'CUDA graph replays'}")
     print(f"wall {wall * 1e3:.3f} ms/{what} (profiled), device busy "
           f"{busy:.3f} ms/{what} ({100 * busy / (wall * 1e3):.1f}% of the "
           f"window), of which the port's CUDA kernels {own:.3f} ms")
-    if args.fwd_bwd:
+    if args.fwd_bwd and args.eager:
         print(f"{'phase':>14} {'host ms':>9} {'device ms':>10}")
         for name, host, dev in phase_split(prof, reps):
             print(f"{name:>14} {host:9.3f} {dev:10.3f}")
