@@ -123,22 +123,29 @@ scan's kernels were not.
      their eager runs under disable_graphs(), on office at 1920x1080
      with "cluster" and "auto": render, render_aa (the budget sized as
      phase 12 sizes it), the training step and five fit steps. The third
-     call of each (the fit's third step on) must replay a captured graph,
-     launch the same kernels as often as the eager call, and agree with
-     it: images bit-equal, the loss within rtol 1e-6, gradients within
-     REL_GRAD x max|eager|, fit losses within rtol 1e-5. Each is then
-     timed in turns, 10 (eager, graphed) pairs alternating which runs
-     first (medians, pairs won), with each path's device-busy time from
-     torch.profiler over three calls and its share of the median wall
-     time; the 1080p training step's max_memory_reserved eager and
-     graphed; o_03's and o_04's render_aa the same way, in 5 pairs, busy
-     time over one call.
+     call of each (the fit's third step on) must replay a captured graph
+     that holds no IF node (office has one segment), launch the same
+     kernels as often as the eager call, and agree with it: images
+     bit-equal, the loss within rtol 1e-6, gradients within REL_GRAD x
+     max|eager|, fit losses within rtol 1e-5. Each is then timed in
+     turns, 10 (eager, graphed) pairs alternating which runs first
+     (medians, pairs won, the largest graphed/eager ratio), with each
+     path's device-busy time from torch.profiler over three calls and
+     its share of the median wall time; the 1080p training step's
+     max_memory_reserved eager and graphed; o_03's and o_04's render_aa
+     and o_04's training step (phase 16's) the same way, in 5 pairs,
+     busy time over one call: their captures hold IF nodes (segments
+     1.. under a CUDA-graph IF node, ops/graphs.if_node), printed with
+     the bodies run and skipped per replay and the launches that ran
+     graphed against eager (which runs every segment and selects); on
+     o_04, whose third segment is dead, a replay must skip a body.
 
 On a CUDA device the entry points replay CUDA graphs by default, so the
 phases before 23 run them graphed too: their launch counts are per
-replay (ops/graphs.py), and every run through the kernels' plain
-versions (cfg plain=True, which read the host by design) runs under
-disable_graphs(). Kernel times ("ms") are the card's own: 20 launches
+replay (ops/graphs.py), with the launches of the IF nodes' bodies that
+ran added after each call (graphs.count_bodies), and every run through
+the kernels' plain versions (cfg plain=True, which read the host by
+design) runs under disable_graphs(). Kernel times ("ms") are the card's own: 20 launches
 captured in one CUDA graph, replayed and timed by CUDA events
 (graph_ms); the plain versions' times are host-clocked launches
 (time_ms).
@@ -932,13 +939,17 @@ def compare_branch_kernels(scenes, dev, report):
 
 def timed(fn, reps: int = 3):
     """(result, seconds per call, launches of those calls) after one warm
-    call; the counts are set to 0 just before the timed calls."""
+    call; the counts are set to 0 just before the timed calls. The
+    launches of the IF nodes' bodies that ran are added after each call,
+    outside its time (graphs.count_bodies)."""
     import torch
 
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from myraytracer_tpu_torch.ops.graphs import count_bodies
 
     fn()
     torch.cuda.synchronize()
+    count_bodies()
     reset_launches()
     secs = []
     for _ in range(reps):
@@ -946,6 +957,7 @@ def timed(fn, reps: int = 3):
         out = fn()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
+        count_bodies()
     return out, secs, dict(LAUNCHES)
 
 
@@ -1775,10 +1787,11 @@ def in_turns(eager, graphed, pairs: int = GRAPH_PAIRS) -> dict:
         order = (("eager", eager_ms), ("graphed", lambda: wall_ms(graphed)))
         for mode, fn in (order if i % 2 == 0 else order[::-1]):
             ms[mode].append(fn())
+    ratios = [g / e for g, e in zip(ms["graphed"], ms["eager"])]
     return {"eager_ms": statistics.median(ms["eager"]),
             "graphed_ms": statistics.median(ms["graphed"]),
-            "wins": sum(g < e for g, e in zip(ms["graphed"], ms["eager"])),
-            "pairs": pairs}
+            "wins": sum(r < 1.0 for r in ratios), "pairs": pairs,
+            "max_ratio": max(ratios)}
 
 
 def add_busy(what: str, results: dict, fns: dict, shared: bool = True,
@@ -1809,52 +1822,74 @@ def add_busy(what: str, results: dict, fns: dict, shared: bool = True,
 def turns_line(t: dict) -> str:
     return (f"eager median {t['eager_ms']:.3f} ms, graphed median "
             f"{t['graphed_ms']:.3f} ms (graphed faster in {t['wins']} of "
-            f"{t['pairs']} pairs); device busy eager {t['eager_busy_ms']:.3f}"
+            f"{t['pairs']} pairs, graphed/eager at most "
+            f"{t['max_ratio']:.3f}); device busy eager {t['eager_busy_ms']:.3f}"
             f" ms ({100 * t['eager_busy_share']:.1f}% of its wall), graphed "
             f"{t['graphed_busy_ms']:.3f} ms "
             f"({100 * t['graphed_busy_share']:.1f}%)")
 
 
 def launches_of(fn) -> tuple:
-    """(result, the launches of one call of fn, graph counts it moved)."""
+    """(result, the launches that ran in one call of fn, graph counts it
+    moved): the launches of a replay's IF-node bodies that ran are added
+    after the call (graphs.count_bodies)."""
     import torch
 
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
-    from myraytracer_tpu_torch.ops.graphs import COUNTS
+    from myraytracer_tpu_torch.ops.graphs import COUNTS, count_bodies
 
     torch.cuda.synchronize()
+    count_bodies()
     reset_launches()
     before = dict(COUNTS)
     out = fn()
     torch.cuda.synchronize()
+    count_bodies()
     return (out, {k: v for k, v in LAUNCHES.items() if v},
             {k: COUNTS[k] - before[k] for k in COUNTS})
 
 
-def graphed_vs_eager(what: str, fn, compare, pairs: int = GRAPH_PAIRS
-                     ) -> dict:
-    """One entry point eager (disable_graphs) and graphed: the graphed
-    call after a warm-up and a capture must be a replay, launch the same
-    kernels as many times as the eager call, and agree with it
-    (``compare(graphed, eager)`` checks and describes); then timed in
-    turns."""
+def graphed_vs_eager(what: str, fn, compare, if_nodes: bool,
+                     pairs: int = GRAPH_PAIRS, skips: bool = False) -> dict:
+    """One entry point eager (disable_graphs: every segment runs, a
+    select keeps or drops it) and graphed: the capture (the second call)
+    must make IF nodes exactly when ``if_nodes``, the third call must be
+    a replay and agree with the eager call (``compare(graphed, eager)``
+    checks and describes). Without IF nodes it launches the same kernels
+    as often as the eager call; with them, no kernel more often than the
+    eager call, and with ``skips`` a replay must skip a body (a scene with
+    a dead segment). Then timed in turns."""
     from myraytracer_tpu_torch.ops.graphs import disable_graphs
 
     with disable_graphs():
         eager, l_eager, moved = launches_of(fn)
     check(not any(moved.values()), f"{what}: an eager call used a graph")
     fn()
-    fn()
+    _, _, captured = launches_of(fn)
     got, l_graph, moved = launches_of(fn)
     check(moved["replays"] > 0 and moved["captures"] == 0
           and moved["warm_ups"] == 0, f"{what}: the third call was not a "
           f"replay of a captured graph: {moved}")
-    check(l_graph == l_eager, f"{what}: launches graphed {l_graph}, eager "
-          f"{l_eager}")
+    nodes, ran, skipped = (captured["if_nodes"], moved["bodies_run"],
+                           moved["bodies_skipped"])
+    check((nodes > 0) == if_nodes, f"{what}: {nodes} IF nodes captured")
+    if if_nodes:
+        check((skipped > 0 or not skips) and all(l_graph.get(k, 0) <= n
+                                                 for k, n in l_eager.items())
+              and set(l_graph) <= set(l_eager), f"{what}: launches that "
+              f"ran graphed {l_graph} ({skipped} bodies skipped), eager "
+              f"{l_eager}")
+    else:
+        check(l_graph == l_eager, f"{what}: launches graphed {l_graph}, "
+              f"eager {l_eager}")
     agree = compare(got, eager)
-    print(f"graphs {what}: {agree}; launches per call {l_graph} (both); "
-          f"the third call replayed")
-    return dict(in_turns(fn, fn, pairs), launches=l_graph)
+    print(f"graphs {what}: {agree}; IF nodes captured {nodes}, bodies per "
+          f"replay run {ran} and skipped {skipped}; launches that ran per "
+          f"call graphed {l_graph}, eager {l_eager}; the third call "
+          f"replayed")
+    return dict(in_turns(fn, fn, pairs), launches=l_graph,
+                eager_launches=l_eager, if_nodes=nodes, bodies_run=ran,
+                bodies_skipped=skipped)
 
 
 def same_image(what):
@@ -1914,8 +1949,10 @@ def graphed_fit(what, data, camera, cfg) -> tuple:
     want = [{"warm_ups": 1, "captures": 0, "replays": 0}] * 2 + [
         {"warm_ups": 0, "captures": 1, "replays": 1}] + [
         {"warm_ups": 0, "captures": 0, "replays": 1}] * (GRAPH_FIT_STEPS - 3)
-    check([m for _, _, m in graphed] == want,
-          f"{what}: graph calls per step {[m for _, _, m in graphed]}")
+    calls = [{k: m[k] for k in want[0]} for _, _, m in graphed]
+    check(calls == want, f"{what}: graph calls per step {calls}")
+    check(not any(m["if_nodes"] for _, _, m in graphed),
+          f"{what}: the fit step captured an IF node")
     le, lg = [x[0] for x in eager], [x[0] for x in graphed]
     for a, b in zip(lg, le):
         check(abs(a - b) <= GRAPH_FIT_RTOL * abs(b),
@@ -1997,13 +2034,13 @@ def graphed_paths(dev: str, tess: int = 10, full=(1920, 1080)) -> None:
                                                    cfg=cfg)}
         summary[method] = {
             "render": graphed_vs_eager(f"{where} render", fns["render"],
-                                       same_image(f"{where} render")),
+                                       same_image(f"{where} render"), False),
             "render_aa": graphed_vs_eager(
                 f"{where} render_aa (budget {budget})", fns["render_aa"],
-                same_image(f"{where} render_aa")),
+                same_image(f"{where} render_aa"), False),
             "step": graphed_vs_eager(
                 f"{where} training step", fns["step"],
-                same_loss_grads(f"{where} training step"))}
+                same_loss_grads(f"{where} training step"), False)}
         summary[method]["fit"], fns["fit"] = graphed_fit(
             f"{where} fit step", data, camera,
             cfg._replace(texture_filter="bilinear"))
@@ -2022,9 +2059,20 @@ def graphed_paths(dev: str, tess: int = 10, full=(1920, 1080)) -> None:
         torch.cuda.reset_peak_memory_stats()
         goldens[name] = graphed_vs_eager(
             f"{name} {cam.width}x{cam.height} render_aa (budget {budget})",
-            fns[name], same_image(f"{name} render_aa"), GOLDEN_PAIRS)
+            fns[name], same_image(f"{name} render_aa"), True, GOLDEN_PAIRS,
+            skips=name == "o_04_molecule")
         goldens[name]["peak_reserved_gib"] = (torch.cuda.max_memory_reserved()
                                               / 2**30)
+    # phase 16's o_04 training step: the topology's segments branch, the
+    # replay (trace_shade) keeps its select
+    cfg = tr.TraceConfig(tri_method="bvh")
+    target = 0.9 * render(gdata, cam, cfg=cfg) + 0.02
+    fns["o_04_step"] = lambda: render_loss_grad_image(gdata, cam, target,
+                                                      cfg=cfg)
+    goldens["o_04_step"] = graphed_vs_eager(
+        f"o_04_molecule {cam.width}x{cam.height} training step (bvh)",
+        fns["o_04_step"], same_loss_grads("o_04_molecule training step"),
+        True, GOLDEN_PAIRS, skips=True)
     add_busy("goldens", goldens, fns, shared=False, reps=1)
     summary.update(goldens)
     del fns
@@ -2057,7 +2105,6 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     returns the per-kernel report."""
     import torch
 
-    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
     from myraytracer_tpu_torch.ops import tracer as tr
     from myraytracer_tpu_torch.ops.graphs import disable_graphs
     from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
@@ -2088,16 +2135,7 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
           f"{float((img_k - img_p).abs().mean())}")
     check(frac >= 0.995, f"{small[0]}x{small[1]} render: {frac} within 1e-4")
 
-    render(data, scene.camera)                      # warm
-    torch.cuda.synchronize()
-    reset_launches()
-    secs = []
-    for _ in range(3):
-        t = time.perf_counter()
-        img = render(data, scene.camera)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t)
-    launches = dict(LAUNCHES)
+    img, secs, launches = timed(lambda: render(data, scene.camera))
     med = statistics.median(secs)
     mean = float(img.mean())
     print(f"render {full[0]}x{full[1]}: median {med:.4f} s of {secs}, "
@@ -2114,16 +2152,8 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     compare_training_paths(data, cam_small)
 
     target = 0.9 * render(data, scene.camera) + 0.02
-    render_loss_grad_image(data, scene.camera, target)      # warm
-    torch.cuda.synchronize()
-    reset_launches()
-    secs = []
-    for _ in range(3):
-        t = time.perf_counter()
-        loss, grads = render_loss_grad_image(data, scene.camera, target)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t)
-    launches = dict(LAUNCHES)
+    (loss, grads), secs, launches = timed(
+        lambda: render_loss_grad_image(data, scene.camera, target))
     med = statistics.median(secs)
     print(f"loss-grad {full[0]}x{full[1]}: median {med:.4f} s of {secs}, "
           f"{full[0] * full[1] / med:.4g} rays/s, loss {float(loss)}, "

@@ -75,6 +75,10 @@ _SIGNATURES = {
     "mrt_seg_fwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
     "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
     "mrt_bvh_walk": [_P] * 9 + [_I] * 4 + [_P],
+    # CUDA-graph IF nodes (graph_cond.cu; ops/graphs.if_node): pred,
+    # the capturing stream, the body's stream; the body's stream
+    "mrt_if_node_begin": [_P] * 3,
+    "mrt_if_node_end": [_P],
 }
 
 #: C helpers that give a kernel's dynamic shared memory per block, in

@@ -6,7 +6,8 @@ size, config) and replays the program (``myraytracer_tpu/ops/render.py``:
 ``myraytracer_tpu/inverse.py``: the fit step with its optimizer update).
 Inside those programs ``lax.cond`` decides on the device whether a
 segment runs. The port captures each entry point's launches once per key
-as a ``torch.cuda.CUDAGraph`` and replays them (:func:`run`):
+as a ``torch.cuda.CUDAGraph`` and replays them (:func:`run`), with each
+conditional segment under a CUDA-graph IF node (:func:`if_node`):
 
   key       the entry point's name; its static arguments (the scene's
             static fields, ``live_depth`` among them, ``cfg``, ``tile``,
@@ -30,7 +31,13 @@ as a ``torch.cuda.CUDAGraph`` and replays them (:func:`run`):
   outputs   cloned before they are returned, so two results that a caller
             keeps never alias (jit returns fresh arrays).
   launches  ``kernels/_build.LAUNCHES`` gains, per replay, the launches
-            that the capture recorded; the capture itself adds none.
+            that the capture recorded outside IF nodes; the capture
+            itself adds none. An IF node's body runs or not by a value
+            on the card that the replay does not read, so its launches
+            are added by :func:`count_bodies`, after a synchronise, for
+            the bodies that ran in the last replay of each key: call it
+            after a replay whose launches you count, never on a replay's
+            path.
   size      at most :data:`MAX_GRAPHS` keys; the least recently used is
             evicted first and its graph and memory pool released.
 
@@ -48,7 +55,7 @@ import contextlib
 import dataclasses
 import os
 import traceback
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -69,20 +76,50 @@ class GraphCaptureError(RuntimeError):
 
 
 @dataclasses.dataclass
+class _Body:
+    """The body of one IF node of a captured graph."""
+
+    pred: torch.Tensor                  # 0-d bool, written by each replay
+    launches: Dict[str, int]            # kernel launches the body holds
+
+
+@dataclasses.dataclass
+class _Recording:
+    """What a capture in progress gives :func:`if_node`."""
+
+    device: torch.device
+    pool: Optional[tuple] = None        # the bodies' memory pool, if any
+    bodies: List[_Body] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class _Entry:
     held: tuple                         # tensors read in place
     staged: tuple                       # device buffers of staged inputs
     graph: Any = None                   # torch.cuda.CUDAGraph once captured
     outputs: Any = None                 # the graph's static outputs
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    bodies: List[_Body] = dataclasses.field(default_factory=list)
+    body_pool: Optional[tuple] = None   # the IF nodes' bodies' memory
 
 
 _CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
 #: calls of :func:`run` on a CUDA device so far, by what they did: the
 #: eager warm-up of a new key, a capture (followed by its first replay),
-#: a replay (captures included)
-COUNTS = {"warm_ups": 0, "captures": 0, "replays": 0}
+#: a replay (captures included); the IF nodes that the captures made
+#: (one per conditional segment); and the IF nodes' bodies that ran and
+#: that were skipped in the last replay of each key that
+#: :func:`count_bodies` counted
+COUNTS = {"warm_ups": 0, "captures": 0, "replays": 0, "if_nodes": 0,
+          "bodies_run": 0, "bodies_skipped": 0}
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+#: the streams that IF nodes' bodies are captured on
+_BODY_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+#: the capture in progress in :func:`run`, else None
+_RECORDING: Optional[_Recording] = None
+#: keys replayed since :func:`count_bodies` last ran, whose graphs hold
+#: IF nodes
+_UNCOUNTED: Dict[int, _Entry] = {}
 _disabled = 0
 
 
@@ -121,7 +158,12 @@ def clear() -> None:
 def _release(entry: _Entry) -> None:
     if entry.graph is not None:
         entry.graph.reset()
-    entry.graph = entry.outputs = None
+    if entry.body_pool is not None:
+        torch._C._cuda_releasePool(entry.bodies[0].pred.device.index,
+                                   entry.body_pool)
+    entry.graph = entry.outputs = entry.body_pool = None
+    entry.bodies = []
+    _UNCOUNTED.pop(id(entry), None)
 
 
 def tensor_key(t: torch.Tensor) -> tuple:
@@ -182,13 +224,37 @@ def run(name: str, fn: Callable, device, static=(),
     _CACHE.move_to_end(key)
     _stage(entry, staged)
     if entry.graph is None:
-        _capture(name, fn, entry)
+        _capture(name, fn, entry, device)
         COUNTS["captures"] += 1
     entry.graph.replay()
     COUNTS["replays"] += 1
     for k, n in entry.launches.items():
         _build.LAUNCHES[k] += n
+    if entry.bodies:
+        _UNCOUNTED[id(entry)] = entry
     return _clone(entry.outputs)
+
+
+def count_bodies() -> Tuple[int, int]:
+    """Add to ``LAUNCHES`` the launches of the IF nodes' bodies that ran
+    in the last replay of each key replayed since the last call, and
+    return how many bodies ran and were skipped there (also added to
+    :data:`COUNTS`). It synchronises the card and reads each body's
+    condition, so it is never called on a replay's path."""
+    ran = skipped = 0
+    for entry in _UNCOUNTED.values():
+        torch.cuda.synchronize(entry.bodies[0].pred.device)
+        taken = torch.stack([b.pred for b in entry.bodies]).tolist()
+        for body, took in zip(entry.bodies, taken):
+            if took:
+                for k, n in body.launches.items():
+                    _build.LAUNCHES[k] += n
+        ran += sum(taken)
+        skipped += len(taken) - sum(taken)
+    _UNCOUNTED.clear()
+    COUNTS["bodies_run"] += ran
+    COUNTS["bodies_skipped"] += skipped
+    return ran, skipped
 
 
 def _stage(entry: _Entry, staged) -> None:
@@ -198,12 +264,16 @@ def _stage(entry: _Entry, staged) -> None:
         buf.copy_(src, non_blocking=True)
 
 
+def _stream(streams: dict, device: torch.device) -> torch.cuda.Stream:
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
 def _warm_up(fn: Callable, entry: _Entry, device: torch.device):
     """The eager first call of a key, on a side stream."""
     cur = torch.cuda.current_stream(device)
-    side = _SIDE_STREAMS.get(device)
-    if side is None:
-        side = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    side = _stream(_SIDE_STREAMS, device)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         out = fn(*entry.staged)
@@ -215,8 +285,10 @@ def _failure_site(exc: BaseException) -> str:
     """Where a failed capture stopped: the innermost line outside the
     torch package of the first exception in ``exc``'s chain (a capture
     whose region read the host fails again when the capture ends), and
-    that exception."""
-    while exc.__context__ is not None:
+    that exception. An exception raised ``from`` another (a
+    :class:`GraphCaptureError` of :func:`if_node`, which names its
+    segment) ends the walk."""
+    while exc.__context__ is not None and not exc.__suppress_context__:
         exc = exc.__context__
     frames = traceback.extract_tb(exc.__traceback__)
     own = [f for f in frames
@@ -227,15 +299,21 @@ def _failure_site(exc: BaseException) -> str:
     return f"{at}: {type(exc).__name__}: {exc}"
 
 
-def _capture(name: str, fn: Callable, entry: _Entry) -> None:
+def _capture(name: str, fn: Callable, entry: _Entry,
+             device: torch.device) -> None:
     """Capture ``fn`` into the entry's graph; the launches its kernel
-    wrappers count during the capture become the count of one replay."""
+    wrappers count during the capture outside IF nodes become the count
+    of one replay, those inside each node its body's count."""
+    global _RECORDING
     before = dict(_build.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
+    rec = _RECORDING = _Recording(device)
     try:
         with torch.cuda.graph(graph):
             out = fn(*entry.staged)
     except Exception as e:
+        if rec.pool is not None:
+            torch._C._cuda_releasePool(rec.device.index, rec.pool)
         raise GraphCaptureError(
             f"graph capture of {name} failed at {_failure_site(e)}. The "
             f"region must not read device values on the host, copy from "
@@ -243,10 +321,85 @@ def _capture(name: str, fn: Callable, entry: _Entry) -> None:
             f"capturable=True; run it under disable_graphs() to run it "
             f"eagerly") from e
     finally:
+        _RECORDING = None
         counted = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
         _build.LAUNCHES.update(before)
     entry.graph, entry.outputs = graph, out
     entry.launches = {k: v for k, v in counted.items() if v}
+    entry.bodies, entry.body_pool = rec.bodies, rec.pool
+    COUNTS["if_nodes"] += len(rec.bodies)
+
+
+def capturing(device) -> bool:
+    """Is the current stream of the CUDA ``device`` capturing a graph?
+    (False for any other device.)"""
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
+def if_node(pred: torch.Tensor, body: Callable[[], Any], site: str) -> None:
+    """Capture ``body()`` under a CUDA-graph IF node on the 0-d bool
+    ``pred``: the counterpart of ``lax.cond`` inside a captured region.
+
+    A replay runs the body's launches only where ``pred`` holds when the
+    node is reached; else the tensors that the body writes in place keep
+    what they held. The body may launch kernels, copies and fills on
+    device memory, and allocate: its blocks come from a pool of its own,
+    which the bodies of one graph share and which lives as long as the
+    graph, so it must copy every result that later nodes read into a
+    tensor allocated before the node. Its launches are counted apart
+    (:func:`count_bodies`). The node is made by ``csrc/graph_cond.cu``
+    (``cudaGraphAddNode`` of a conditional node, set on the device by
+    ``cudaGraphSetConditional``). Any failure raises
+    :class:`GraphCaptureError` naming ``site``: a capture that cannot
+    branch is never made with the branch's body run unconditionally.
+    """
+    rec = _RECORDING
+    if rec is None:
+        raise GraphCaptureError(
+            f"{site}: an IF node is captured only inside graphs.run")
+    if not (pred.is_cuda and pred.dtype == torch.bool and pred.dim() == 0):
+        raise GraphCaptureError(
+            f"{site}: an IF node's condition is a 0-d bool tensor on the "
+            f"card, not {pred.dtype} {tuple(pred.shape)} on {pred.device}")
+    lib = _build.library()
+    device = pred.device
+    body_stream = _stream(_BODY_STREAMS, device)
+    with torch.cuda.device(device):
+        err = lib.mrt_if_node_begin(
+            pred.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            body_stream.cuda_stream)
+    if err:
+        raise GraphCaptureError(f"{site}: CUDA refused the IF node: "
+                                f"{lib.mrt_error_string(err).decode()}")
+    before = dict(_build.LAUNCHES)
+    # the capture's own pool routes only its stream's allocations; the
+    # body's stream gets the bodies' pool, whose first reference the
+    # recording keeps (released with the graph)
+    pool = rec.pool or torch.cuda.graph_pool_handle()
+    try:
+        torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, pool)
+        try:
+            with torch.cuda.stream(body_stream):
+                body()
+        finally:
+            torch._C._cuda_endAllocateToPool(device.index, pool)
+            if rec.pool is None:
+                rec.pool = pool
+            else:
+                torch._C._cuda_releasePool(device.index, pool)
+    except Exception as e:
+        raise GraphCaptureError(f"{site}: {_failure_site(e)}") from e
+    finally:
+        end = lib.mrt_if_node_end(body_stream.cuda_stream)
+    if end:
+        raise GraphCaptureError(f"{site}: the IF node's body could not be "
+                                f"captured: "
+                                f"{lib.mrt_error_string(end).decode()}")
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                if v != before[k]}
+    _build.LAUNCHES.update(before)
+    rec.bodies.append(_Body(pred, launched))
 
 
 def _clone(x):

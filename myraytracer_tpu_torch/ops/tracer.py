@@ -36,12 +36,17 @@ choice by scene content, the reference's rule, not a fallback: K5/K6
 cover what the reference's K5/K6 cover.
 
 A segment in which no ray is alive any more yields its carry unchanged,
-as the reference's ``lax.cond`` does; the condition is a 0-d tensor and
-the choice a ``torch.where`` on the device (:func:`_select`), so no
-segment reads a value back to the host and the entry points can be
-captured as CUDA graphs (ops/graphs.py). The segment itself runs either
-way. Segment 0 of a fresh carry has every ray alive (weight 1), so it
-takes no select.
+as the reference's ``lax.cond`` does. The condition is a 0-d tensor on
+the device, so no segment reads a value back to the host and the entry
+points can be captured as CUDA graphs (ops/graphs.py). While a graph is
+being captured, segments 1.. of :func:`trace` and :func:`trace_topology`
+are branches (:func:`_branch`): each runs under a CUDA-graph IF node and
+writes the carry, and in the topology its record, in place, so a replay
+skips a dead segment's work as ``lax.cond`` does. Run eagerly (the CPU,
+a key's warm-up, ``disable_graphs()``, the sharded paths), the segment
+runs and a ``torch.where`` keeps or drops its result (:func:`_select`);
+:func:`trace_shade` always selects. Segment 0 of a fresh carry has every
+ray alive (weight 1), so it takes neither.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
+from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import intersect as isx
 from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import shade_grad as sg
@@ -356,6 +362,29 @@ def _select(pred: torch.Tensor, new, old):
     return type(old)(*out) if isinstance(old, Bounce) else tuple(out)
 
 
+def _branch(pred: torch.Tensor, body, bufs, site: str) -> None:
+    """The captured ``lax.cond`` of a segment: ``body()``'s tensors are
+    copied into ``bufs`` inside a CUDA-graph IF node on the 0-d bool
+    ``pred`` (:func:`graphs.if_node`, the seam a test replaces); where
+    the node skips, ``bufs`` keep what they held. ``bufs`` are allocated
+    before the node, so later nodes read fixed addresses."""
+    def run():
+        for buf, val in zip(bufs, body()):
+            buf.copy_(val)
+    graphs.if_node(pred, run, site)
+
+
+def _branches(scene, device) -> bool:
+    """Do segments 1.. run as :func:`_branch` (a graph capture is on)?"""
+    return scene.n_segments > 1 and graphs.capturing(device)
+
+
+def _owned(carry: Bounce) -> Bounce:
+    """Copies of segment 0's carry that the branches write in place (never
+    the caller's rays)."""
+    return Bounce(*(t.clone() for t in carry))
+
+
 def trace(scene, o: torch.Tensor, d: torch.Tensor,
           cfg: TraceConfig = TraceConfig(), pack: Optional[TracePack] = None
           ) -> torch.Tensor:
@@ -371,10 +400,17 @@ def trace(scene, o: torch.Tensor, d: torch.Tensor,
     R = o.shape[0]
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=o.device),
                    color=torch.zeros((R, 3), device=o.device))
+    branches = _branches(scene, o.device)
     for s in range(scene.n_segments):
+        if s and branches:
+            _branch((carry.weight > 0.0).any(),
+                    lambda: segment_step(scene, pack, carry, cfg)[0], carry,
+                    f"segment {s} of trace")
+            continue
         nxt, _ = segment_step(scene, pack, carry, cfg)
-        carry = nxt if s == 0 else _select((carry.weight > 0.0).any(), nxt,
-                                           carry)
+        if s:
+            nxt = _select((carry.weight > 0.0).any(), nxt, carry)
+        carry = _owned(nxt) if branches else nxt
     return carry.color
 
 
@@ -393,20 +429,40 @@ def trace_topology(scene, o: torch.Tensor, d: torch.Tensor,
     dev = o.device
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=dev),
                    color=torch.zeros((R, 3), device=dev))
-    dead = (torch.full((R,), shade.KIND_MISS, dtype=torch.int32, device=dev),
+    branches = _branches(scene, o.device)
+    records = []
+    for s in range(scene.n_segments):
+        if s and branches:
+            rec = _dead(R, L, dev)
+            _branch((carry.weight > 0.0).any(),
+                    lambda: _flat(segment_step(scene, pack, carry, cfg)),
+                    carry + rec, f"segment {s} of trace_topology")
+            records.append(rec)
+            continue
+        nxt, rec = segment_step(scene, pack, carry, cfg)
+        if s:
+            alive = (carry.weight > 0.0).any()
+            nxt = _select(alive, nxt, carry)
+            rec = _select(alive, rec, _dead(R, L, dev))
+        carry = _owned(nxt) if branches else nxt
+        records.append(rec)
+    return TraceTopo(*(torch.stack(x) for x in zip(*records)))
+
+
+def _dead(R: int, L: int, dev) -> tuple:
+    """The record of a segment in which no ray is alive (kind KIND_MISS,
+    idx 0, no hit, no miss, no shadow): the reference's ``dead``."""
+    return (torch.full((R,), shade.KIND_MISS, dtype=torch.int32, device=dev),
             torch.zeros(R, dtype=torch.int32, device=dev),
             torch.zeros(R, dtype=torch.bool, device=dev),
             torch.zeros(R, dtype=torch.bool, device=dev),
             torch.zeros((L, R), dtype=torch.bool, device=dev))
-    records = []
-    for s in range(scene.n_segments):
-        nxt, rec = segment_step(scene, pack, carry, cfg)
-        if s:
-            alive = (carry.weight > 0.0).any()
-            nxt, rec = _select(alive, nxt, carry), _select(alive, rec, dead)
-        carry = nxt
-        records.append(rec)
-    return TraceTopo(*(torch.stack(x) for x in zip(*records)))
+
+
+def _flat(step) -> tuple:
+    """(next bounce, record) of :func:`segment_step` as one tuple."""
+    nxt, rec = step
+    return nxt + rec
 
 
 def lighting_from_mask(scene, hit: shade.Hit, view: torch.Tensor,

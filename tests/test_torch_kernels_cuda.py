@@ -717,10 +717,12 @@ def test_graphed_entry_points_equal_eager(cuda, method, entry):
           "loss_grad": lambda: render_loss_grad_image(data, cam, tgt, cfg)
           }[entry]
     want, l_eager = _eager(fn)
+    nodes = graphs.COUNTS["if_nodes"]
     got, l_graph, moved = _three_calls(fn)
     assert moved["replays"] >= 1 and moved["captures"] == 0
     assert moved["warm_ups"] == 0
     assert l_graph == l_eager
+    assert graphs.COUNTS["if_nodes"] == nodes       # one segment: no branch
     if entry == "loss_grad":
         np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
         for k in want[1]:
@@ -807,3 +809,114 @@ def test_uncapturable_optimizer_raises_at_capture(cuda):
         inv.fit_pixels(xs, ys, tgt, steps=1)
     with graphs.disable_graphs():
         assert np.isfinite(inv.fit_pixels(xs, ys, tgt, steps=1).losses).all()
+
+
+# --- conditional segments: CUDA-graph IF nodes (ops/graphs.if_node) -------
+
+def _dead_scene(dev, w=128, h=96):
+    """A convex mirror mesh sphere before the background, max_depth 3:
+    every ray is dead after segment 1, so segments 2 and 3 are dead
+    (tests/test_torch_graphs.py's dead_scene)."""
+    from myraytracer_tpu_torch.scenes.shapes import uv_sphere
+
+    s = Scene()
+    s.set_camera(eye=(0, 0.5, 4), center=(0, 0, 0), up=(0, 1, 0), fovy=40,
+                 width=w, height=h)
+    s.add_light((3, 3, 3), (0.9, 0.85, 0.8))
+    s.ambience = (0.1, 0.1, 0.12)
+    s.background = (0.05, 0.1, 0.2)
+    s.max_depth = 3
+    v, f = uv_sphere(1.0, 8, 12)
+    s.add_mesh(TriangleMesh(v, f, material=Material(
+        ambient=(0.1, 0.1, 0.1), diffuse=(0.5, 0.3, 0.2),
+        specular=(0.4, 0.4, 0.4), shininess=20, mirror=0.6), draw_mode=FLAT))
+    return s.build(device=dev), s.camera
+
+
+def _captured_launches():
+    """Every launch the captured graphs hold: outside IF nodes and in
+    every body."""
+    from collections import Counter
+
+    total = Counter()
+    for entry in graphs._CACHE.values():
+        if entry.graph is not None:
+            total.update(entry.launches)
+            for body in entry.bodies:
+                total.update(body.launches)
+    return dict(total)
+
+
+@pytest.mark.parametrize("method", ["cluster", "auto"])
+@pytest.mark.parametrize("entry", ["render", "render_aa", "loss_grad"])
+def test_graphed_dead_segments_skip_and_equal_eager(cuda, method, entry):
+    """On the dead scene the capture holds IF nodes; a replay skips the
+    dead segments' bodies, so the launches that ran (count_bodies) are
+    fewer than those captured, which equal the eager call's (a select
+    runs every segment); images bit-equal, the loss within rtol 1e-6,
+    gradients within 5e-4 x max|eager|."""
+    graphs.clear()
+    data, cam = _dead_scene(cuda)
+    cfg = tr.TraceConfig(tri_method=method)
+    tgt = 0.9 * render(data, cam, cfg) + 0.02
+    fn = {"render": lambda: render(data, cam, cfg),
+          "render_aa": lambda: render_aa(data, cam, cfg, budget_frac=0.05),
+          "loss_grad": lambda: render_loss_grad_image(data, cam, tgt, cfg)
+          }[entry]
+    want, l_eager = _eager(fn)
+    graphs.clear()
+    nodes = graphs.COUNTS["if_nodes"]
+    fn()
+    fn()
+    assert graphs.COUNTS["if_nodes"] >= nodes + 2
+    assert _captured_launches() == l_eager
+    graphs.count_bodies()
+    got, l_replay, moved = _three_calls(fn)
+    ran, skipped = graphs.count_bodies()
+    executed = {k: v for k, v in LAUNCHES.items() if v}
+    assert moved["replays"] >= 1 and moved["captures"] == 0
+    assert ran >= 1 and skipped >= 2
+    assert all(executed.get(k, 0) <= n for k, n in l_eager.items())
+    assert sum(executed.values()) < sum(l_eager.values())
+    assert sum(l_replay.values()) < sum(executed.values())
+    if entry == "loss_grad":
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+        for k in want[1]:
+            _close_scaled(got[1][k], want[1][k], k, rel=5e-4)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_if_node_skips_and_runs_by_the_condition(cuda):
+    """One region, one IF node: a replay runs the body where the
+    condition holds and leaves its buffer alone where it does not; the
+    body's allocations come from the graph's pool."""
+    graphs.clear()
+    w = torch.ones(1000, device=cuda)
+    out = torch.zeros(1000, device=cuda)
+
+    def region():
+        pred = (w > 0).any()
+
+        def body():
+            tmp = torch.zeros((1000, 3), device=cuda)
+            tmp[:, 1] = 2.0
+            v, _ = torch.sort(w * 3.0 + tmp.sum(1))
+            out.copy_(torch.cumsum(v, 0))
+        if graphs.capturing(cuda):
+            graphs.if_node(pred, body, "the test's body")
+        elif bool(pred):                    # the eager warm-up
+            body()
+        return out * 1.0
+
+    for _ in range(3):
+        graphs.run("cond", region, cuda, held=[w, out])
+    want = torch.cumsum(torch.full((1000,), 5.0, device=cuda), 0)
+    got = graphs.run("cond", region, cuda, held=[w, out])
+    assert torch.equal(got, want) and graphs.count_bodies() == (1, 0)
+    w.zero_()
+    out.fill_(-1.0)
+    got = graphs.run("cond", region, cuda, held=[w, out])
+    assert (got == -1.0).all() and graphs.count_bodies() == (0, 1)
+    w.fill_(1.0)
+    assert torch.equal(graphs.run("cond", region, cuda, held=[w, out]), want)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's office render or training step on one GPU.
 
-    python3 tools/torch_profile.py [--fwd-bwd | --scene NAME]
+    python3 tools/torch_profile.py [--fwd-bwd] [--scene NAME] [--segments N]
         [--tri-method {cluster,bvh,brute}] [--eager] [--trace out.json]
 
 Runs office (tess 10, 1920x1080) twice to build, warm up and capture its
@@ -16,15 +16,20 @@ the training step ``render_loss_grad_image`` instead (loss against a
 target image and all 23 parameter gradients; eager, its profiler ranges
 split it by phase, while graphed it is one replay); ``--scene NAME`` profiles
 ``render_aa`` of that golden scene (e.g. o_04_molecule) at its golden
-resolution and budget. ``--tri-method`` picks the triangle method
-(``TraceConfig.tri_method``; default "cluster", the scan; "bvh" the walk
-K7). ``--trace`` also writes a Chrome trace. Needs a CUDA device.
+resolution and budget, or with ``--fwd-bwd`` its training step.
+``--segments N`` traces only the first N Whitted segments (max_depth
+N - 1): where the segments cut are dead, the results stay the same and
+the time saved is what those segments cost. ``--tri-method`` picks the
+triangle method (``TraceConfig.tri_method``; default "cluster", the
+scan; "bvh" the walk K7). ``--trace`` also writes a Chrome trace.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import sys
 import time
@@ -66,7 +71,10 @@ def main() -> int:
     ap.add_argument("--fwd-bwd", action="store_true",
                     help="profile render_loss_grad_image, not render")
     ap.add_argument("--scene", default=None,
-                    help="profile render_aa of this golden scene instead")
+                    help="profile this golden scene's render_aa (its "
+                         "training step with --fwd-bwd) instead")
+    ap.add_argument("--segments", type=int, default=None,
+                    help="trace only the first N Whitted segments")
     ap.add_argument("--tri-method", default="cluster",
                     choices=("cluster", "bvh", "brute", "auto"),
                     help="the triangle method (TraceConfig.tri_method)")
@@ -99,8 +107,11 @@ def main() -> int:
     else:
         scene = scene_08_office(tess=tess, resolution=(width, height))
     data = scene.build(device="cuda:0")
+    if args.segments:
+        data = dataclasses.replace(data, max_depth=args.segments - 1,
+                                   live_depth=args.segments)
     cfg = TraceConfig(tri_method=args.tri_method)
-    if args.scene:
+    if args.scene and not args.fwd_bwd:
         def step():
             return render_aa(data, scene.camera, budget_frac=budget, cfg=cfg)
     elif args.fwd_bwd:
@@ -137,12 +148,13 @@ def main() -> int:
     # kernel's name (cluster_scan_kernel<...>) carries its return type
     own = sum(r[0] for r in rows if r[2].startswith(
         ("(anonymous namespace)::", "void (anonymous namespace)::")))
-    what = ("render_aa" if args.scene
-            else "fwd+bwd step" if args.fwd_bwd else "render")
+    what = ("fwd+bwd step" if args.fwd_bwd
+            else "render_aa" if args.scene else "render")
     where = args.scene or f"office tess {tess}"
     print(f"{gpu}; {where} {width}x{height}, {data.n_tris} triangles, "
           f"{data.n_spheres + data.n_planes + data.n_cylinders} analytic "
-          f"primitives; tri_method {args.tri_method}; profiled: {what}, "
+          f"primitives, {data.n_segments} segment(s); tri_method "
+          f"{args.tri_method}; profiled: {what}, "
           f"{'eager' if args.eager else 'CUDA graph replays'}")
     print(f"wall {wall * 1e3:.3f} ms/{what} (profiled), device busy "
           f"{busy:.3f} ms/{what} ({100 * busy / (wall * 1e3):.1f}% of the "
