@@ -81,6 +81,7 @@ class _Body:
 
     pred: torch.Tensor                  # 0-d bool, written by each replay
     launches: Dict[str, int]            # kernel launches the body holds
+    site: str = ""                      # what the body runs (if_node's)
 
 
 @dataclasses.dataclass
@@ -257,6 +258,21 @@ def count_bodies() -> Tuple[int, int]:
     return ran, skipped
 
 
+def body_sites(name: Optional[str] = None) -> List[Tuple[str, bool]]:
+    """(site, ran) of every IF node's body in the last replay of each
+    captured key (of the entry point ``name`` only, if given), in capture
+    order. It synchronises the card and reads each body's condition, so
+    it is never called on a replay's path."""
+    out = []
+    for key, entry in _CACHE.items():
+        if entry.graph is not None and entry.bodies and (
+                name is None or key[0] == name):
+            torch.cuda.synchronize(entry.bodies[0].pred.device)
+            taken = torch.stack([b.pred for b in entry.bodies]).tolist()
+            out += [(b.site, took) for b, took in zip(entry.bodies, taken)]
+    return out
+
+
 def _stage(entry: _Entry, staged) -> None:
     """Copy each staged input into its buffer, on the current stream
     (ordered after the last replay that read the buffer)."""
@@ -352,7 +368,10 @@ def if_node(pred: torch.Tensor, body: Callable[[], Any], site: str) -> None:
     (``cudaGraphAddNode`` of a conditional node, set on the device by
     ``cudaGraphSetConditional``). Any failure raises
     :class:`GraphCaptureError` naming ``site``: a capture that cannot
-    branch is never made with the branch's body run unconditionally.
+    branch is never made with the branch's body run unconditionally. It
+    may be called from the autograd engine's device thread (a backward
+    inside the captured region): the recording is read by every thread,
+    and the body's allocations are routed by the calling thread.
     """
     rec = _RECORDING
     if rec is None:
@@ -399,7 +418,7 @@ def if_node(pred: torch.Tensor, body: Callable[[], Any], site: str) -> None:
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
                 if v != before[k]}
     _build.LAUNCHES.update(before)
-    rec.bodies.append(_Body(pred, launched))
+    rec.bodies.append(_Body(pred, launched, site))
 
 
 def _clone(x):

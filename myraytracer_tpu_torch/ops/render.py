@@ -36,7 +36,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from myraytracer_tpu_torch.models.camera import Camera
 from myraytracer_tpu_torch.ops import graphs, shade
@@ -327,10 +326,11 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
     Refit, then the topology of every tile (no gradients), then the
     replay of every tile against one pack of the parameters, summed, and
     one backward, so the pack's gather backward runs once per pass.
-    Padded rays (o 0, d 1, target 0) carry w 0. The replay of a tile runs
-    under ``torch.utils.checkpoint`` unless it takes the fused K5/K6
-    segment (:meth:`tr.TraceConfig.fused_grad`, the reference's rule),
-    whose residuals are its inputs. The four phases are
+    Padded rays (o 0, d 1, target 0) carry w 0. The replay of a tile
+    keeps no residual (``trace_shade(..., checkpoint=True)``): its
+    autograd replay recomputes each segment in the backward, and the
+    fused K5/K6 segment (:meth:`tr.TraceConfig.fused_grad`, the
+    reference's rule) keeps only its inputs. The four phases are
     profiler ranges (``mrt.refit``, ``mrt.topology``, ``mrt.replay``,
     ``mrt.backward``) that tools/torch_profile.py reports.
     """
@@ -361,24 +361,13 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
               for k, v in split_params(scene).items()}
     merged = merge_params(scene, params)
 
-    def tile_loss(geom, ot, dt, tt, wt, tp):
-        c = tr.trace_shade(merged, ot, dt, tp, cfg, geom)
-        return torch.sum(wt[:, None] * (c - tt) ** 2)
-
     total = None
-    fused = cfg.fused_grad(scene)
     with rf("mrt.replay"):
         geom = shade.pack_shade_geom(merged)
         for ot, dt, tt, wt, tp in zip(o_t, d_t, t_t, w_t, topo):
-            args = (geom, ot, dt, tt, wt, tp)
-            if fused:
-                part = tile_loss(*args)
-            else:
-                # the replay draws no random numbers, and a capture
-                # cannot stash the CUDA generator's state
-                part = torch.utils.checkpoint.checkpoint(
-                    tile_loss, *args, use_reentrant=False,
-                    preserve_rng_state=False)
+            c = tr.trace_shade(merged, ot, dt, tp, cfg, geom,
+                               checkpoint=True)
+            part = torch.sum(wt[:, None] * (c - tt) ** 2)
             total = part if total is None else total + part
     names = list(params)
     with rf("mrt.backward"):

@@ -42,18 +42,25 @@ points can be captured as CUDA graphs (ops/graphs.py). While a graph is
 being captured, segments 1.. of :func:`trace` and :func:`trace_topology`
 are branches (:func:`_branch`): each runs under a CUDA-graph IF node and
 writes the carry, and in the topology its record, in place, so a replay
-skips a dead segment's work as ``lax.cond`` does. Run eagerly (the CPU,
-a key's warm-up, ``disable_graphs()``, the sharded paths), the segment
-runs and a ``torch.where`` keeps or drops its result (:func:`_select`);
-:func:`trace_shade` always selects. Segment 0 of a fresh carry has every
-ray alive (weight 1), so it takes neither.
+skips a dead segment's work as ``lax.cond`` does. Segments 1.. of
+:func:`trace_shade` are :class:`_CondSegment`, an autograd Function whose
+forward and backward each run under an IF node on the segment's
+``(hit | miss).any()``: the VJP of ``lax.cond`` is a cond too, so a dead
+segment costs nothing in a training step either. Run eagerly (the CPU,
+a key's warm-up, ``disable_graphs()``, the sharded paths), a segment
+runs and a ``torch.where`` keeps or drops its result (:func:`_select`),
+and so do the backward's cotangents. Segment 0 of a fresh carry has
+every ray alive (weight 1), so it takes neither.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
+from torch.autograd.function import once_differentiable
 
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
@@ -491,6 +498,18 @@ def lighting_from_mask(scene, hit: shade.Hit, view: torch.Tensor,
     return color + contrib.sum(dim=0)
 
 
+#: the scene tensors that the autograd replay reads besides ShadeGeom's
+#: rows (shade.resolve_hit, lighting_from_mask, _replay_segment): inputs
+#: of its conditional segments, so that their gradients pass through
+REPLAY_FIELDS = ("sphere_center", "sphere_radius", "plane_center",
+                 "plane_normal", "cyl_center", "cyl_axis", "cyl_radius",
+                 "cyl_height", "texels", "light_pos", "light_color",
+                 "ambience", "background")
+
+#: the same for the fused K5/K6 segment, besides ``tri_pack``
+FUSED_FIELDS = ("light_pos", "light_color", "ambience", "background")
+
+
 def _replay_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
                     texture_filter: str) -> Bounce:
     """One segment of the autograd replay (the reference's default)."""
@@ -510,23 +529,163 @@ def _replay_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
                   color=carry.color + add)
 
 
+def _fused_rows(scene, rec, dtype) -> tuple:
+    """The per-ray inputs of the fused segment besides the carry: (tri_idx,
+    is_t, h, miss, lit)."""
+    kind, idx, h, miss, is_shadow = rec
+    ti = torch.clamp(idx, 0, scene.n_tris - 1).to(torch.int32).contiguous()
+    return (ti, (kind == shade.KIND_TRI).contiguous(), h.contiguous(),
+            miss.contiguous(), (~is_shadow).to(dtype).contiguous())
+
+
 def _fused_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
                    plain: bool) -> Bounce:
     """One segment through the fused K5/K6 segment (ops/shade_grad.py)."""
-    kind, idx, h, miss, is_shadow = rec
-    ti = torch.clamp(idx, 0, scene.n_tris - 1).to(torch.int32).contiguous()
-    lit = (~is_shadow).to(carry.o.dtype).contiguous()
+    ti, is_t, h, miss, lit = _fused_rows(scene, rec, carry.o.dtype)
     add, o2, d2, w2 = sg.ShadeSegment.apply(
         carry.o.contiguous(), carry.d.contiguous(), carry.weight.contiguous(),
         geom.tri_pack, ti, scene.light_pos, scene.light_color,
-        scene.ambience, scene.background, (kind == shade.KIND_TRI).contiguous(),
-        h.contiguous(), miss.contiguous(), lit, plain)
+        scene.ambience, scene.background, is_t, h, miss, lit, plain)
     return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Segment:
+    """What a conditional segment of :func:`trace_shade` runs."""
+
+    #: "segment s of trace_shade": the forward IF node's name; the
+    #: backward's adds " (backward)"
+    site: str
+    #: (o, d, weight, color, *tensors) -> the next (o, d, weight, color)
+    fwd: Callable
+    #: autograd keeps ``fwd``'s graph from the forward to the backward
+    #: (its residuals in the IF nodes' pool under a capture), else the
+    #: backward recomputes ``fwd``
+    keep: bool = False
+
+
+class _CondSegment(torch.autograd.Function):
+    """Segment s >= 1 of :func:`trace_shade` as the reference's ``lax.cond``
+    on the segment's record: ``apply(seg, pred, o, d, weight, color,
+    *tensors)`` -> the next (o, d, weight, color), ``pred`` the 0-d bool
+    ``(hit | miss).any()``.
+
+    Under a graph capture the forward runs ``seg.fwd`` in a CUDA-graph IF
+    node on ``pred`` (:func:`_branch`), and the backward runs the
+    segment's VJP in a second IF node on the same condition. Where the
+    nodes skip, the outputs are the carry and the cotangents a dead
+    segment's: the carry's own cotangents unchanged, zero for every other
+    tensor (the VJP of ``lax.cond``'s identity branch), so a dead segment
+    costs nothing forward or backward. Eagerly both run and a select keeps
+    or drops their results, so the two modes group the gradient sums
+    alike. Every tensor the segment reads with a gradient is one of
+    ``tensors``: one that ``seg.fwd`` only closed over would lose its
+    gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, seg: _Segment, pred, *inputs):
+        ctx.seg = seg
+        ctx.branch = graphs.capturing(pred.device)
+        if seg.keep:
+            leaves = [x.detach().requires_grad_(n)
+                      for x, n in zip(inputs, ctx.needs_input_grad[2:])]
+            kept = []
+
+            def body():
+                with torch.enable_grad():
+                    kept[:] = seg.fwd(*leaves)
+                return kept
+            ctx.kept = leaves, kept
+            ctx.save_for_backward(pred)
+        else:
+            def body():
+                return seg.fwd(*inputs)
+            ctx.save_for_backward(pred, *inputs)
+        carry = inputs[:4]
+        if not ctx.branch:
+            return _select(pred, body(), carry)
+        out = [t.clone() for t in carry]
+        _branch(pred, body, out, seg.site)
+        return tuple(out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cots):
+        seg = ctx.seg
+        pred, *inputs = ctx.saved_tensors
+        if seg.keep:
+            inputs = ctx.kept[0]
+        need = ctx.needs_input_grad[2:]
+        idx = [i for i, n in enumerate(need) if n]
+
+        def body():
+            if seg.keep:
+                leaves, outs = ctx.kept
+            else:
+                with torch.enable_grad():
+                    leaves = [x.detach().requires_grad_(n)
+                              for x, n in zip(inputs, need)]
+                    outs = seg.fwd(*leaves)
+            live = [(y, g) for y, g in zip(outs, cots) if y.requires_grad]
+            got = torch.autograd.grad([y for y, _ in live],
+                                      [leaves[i] for i in idx],
+                                      [g for _, g in live], allow_unused=True)
+            return [torch.zeros_like(leaves[i]) if g is None else g
+                    for i, g in zip(idx, got)]
+
+        def dead(i):
+            return cots[i] if i < 4 else torch.zeros_like(inputs[i])
+
+        site = f"{seg.site} (backward)"
+        if not ctx.branch:
+            grads = [torch.where(pred, g, dead(i))
+                     for i, g in zip(idx, body())]
+        elif not graphs.capturing(pred.device):
+            raise graphs.GraphCaptureError(
+                f"{site}: the backward runs off the capturing stream")
+        else:
+            grads = [dead(i).clone() if i < 4 else dead(i) for i in idx]
+            _branch(pred, body, grads, site)
+        out = [None] * len(inputs)
+        for i, g in zip(idx, grads):
+            out[i] = g
+        return (None, None, *out)
+
+
+def _replay_cond(scene, geom: shade.ShadeGeom, rec, texture_filter: str,
+                 site: str, keep: bool):
+    """(segment, tensors) of an autograd replay segment for
+    :class:`_CondSegment`: ``tensors`` are ``tri_pack``, ``mat16`` and
+    REPLAY_FIELDS, which its ``fwd`` puts back into the scene."""
+    def fwd(o, d, weight, color, tri_pack, mat16, *fields):
+        sc = dataclasses.replace(scene, **dict(zip(REPLAY_FIELDS, fields)))
+        return tuple(_replay_segment(
+            sc, shade.ShadeGeom(tri_pack, mat16, geom.ana16),
+            Bounce(o, d, weight, color), rec, texture_filter))
+    return (_Segment(site, fwd, keep=keep),
+            (geom.tri_pack, geom.mat16,
+             *(getattr(scene, f) for f in REPLAY_FIELDS)))
+
+
+def _fused_cond(scene, geom: shade.ShadeGeom, rec, plain: bool, site: str):
+    """(segment, tensors) of a fused K5/K6 segment for :class:`_CondSegment`:
+    ``tensors`` are ``tri_pack`` and FUSED_FIELDS. Its graph is kept, so
+    the backward runs K6 on ShadeSegment's saved inputs and K5 never
+    again."""
+    def fwd(o, d, weight, color, tri_pack, *fields):
+        sc = dataclasses.replace(scene, **dict(zip(FUSED_FIELDS, fields)))
+        return tuple(_fused_segment(
+            sc, shade.ShadeGeom(tri_pack, geom.mat16, geom.ana16),
+            Bounce(o, d, weight, color), rec, plain))
+    return (_Segment(site, fwd, keep=True),
+            (geom.tri_pack, *(getattr(scene, f) for f in FUSED_FIELDS)))
 
 
 def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
                 cfg: TraceConfig = TraceConfig(),
-                geom: Optional[shade.ShadeGeom] = None) -> torch.Tensor:
+                geom: Optional[shade.ShadeGeom] = None,
+                checkpoint: bool = False) -> torch.Tensor:
     """Differentiable shading replay of a recorded topology -> [R, 3].
 
     Re-resolves each segment's fixed hit, shades it under the recorded
@@ -534,10 +693,19 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     occlusion query. ``trace_shade(scene, o, d, trace_topology(scene, o,
     d))`` equals ``trace(scene, o, d)``. ``geom`` (the packed rows) can be
     shared by the tiles of one pass, so that its gather backward runs
-    once. A segment with no live hit or miss yields its carry unchanged
-    (a device-side select); segment 0 of a topology from
-    :func:`trace_topology` always has every ray live. The fused K5/K6
-    segment or the autograd replay by :meth:`TraceConfig.fused_grad`.
+    once. The fused K5/K6 segment or the autograd replay by
+    :meth:`TraceConfig.fused_grad`.
+
+    Segment 0 of a topology from :func:`trace_topology` has every ray
+    live. Segments 1.. are :class:`_CondSegment` on ``(hit | miss).any()``:
+    a segment with no live hit or miss yields its carry unchanged and its
+    cotangents pass through, in IF nodes under a graph capture and by a
+    select eagerly. ``checkpoint`` (the training step's tiles) keeps no
+    residual of the autograd replay between forward and backward:
+    segment 0 runs under ``torch.utils.checkpoint`` and each later
+    segment recomputes itself in its backward, so a live segment's replay
+    runs twice and a dead one's never under a capture; without it each
+    runs once. The fused segment's residuals are its inputs either way.
     """
     fused = cfg.validate().fused_grad(scene)
     if geom is None:
@@ -548,10 +716,25 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     for s in range(topo.kind.shape[0]):
         rec = (topo.kind[s], topo.idx[s], topo.hit[s], topo.miss[s],
                topo.shadow[s])
-        if fused:
-            nxt = _fused_segment(scene, geom, carry, rec, cfg.plain)
+        if s == 0 and fused:
+            carry = _fused_segment(scene, geom, carry, rec, cfg.plain)
+        elif s == 0 and checkpoint:
+            # the replay draws no random numbers, and a capture cannot
+            # stash the CUDA generator's state
+            carry = Bounce(*torch.utils.checkpoint.checkpoint(
+                lambda *c, rec=rec: tuple(_replay_segment(
+                    scene, geom, Bounce(*c), rec, cfg.texture_filter)),
+                *carry, use_reentrant=False, preserve_rng_state=False))
+        elif s == 0:
+            carry = _replay_segment(scene, geom, carry, rec,
+                                    cfg.texture_filter)
         else:
-            nxt = _replay_segment(scene, geom, carry, rec, cfg.texture_filter)
-        carry = nxt if s == 0 else _select((rec[2] | rec[3]).any(), nxt,
-                                           carry)
+            site = f"segment {s} of trace_shade"
+            seg, tensors = (
+                _fused_cond(scene, geom, rec, cfg.plain, site) if fused else
+                _replay_cond(scene, geom, rec, cfg.texture_filter, site,
+                             keep=not checkpoint))
+            carry = Bounce(*_CondSegment.apply(
+                seg, (rec[2] | rec[3]).any(),
+                *(t.contiguous() for t in carry), *tensors))
     return carry.color

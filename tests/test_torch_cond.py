@@ -25,6 +25,7 @@ CUDA device) patched to true, so that:
 """
 
 import contextlib
+import dataclasses
 from unittest import mock
 
 import jax.numpy as jnp
@@ -35,21 +36,32 @@ from torch.utils._python_dispatch import _disable_current_modes
 
 from myraytracer_tpu.models.material import Material as RMaterial
 from myraytracer_tpu.models.mesh import FLAT as RFLAT
+from myraytracer_tpu.models.mesh import PHONG as RPHONG
 from myraytracer_tpu.models.mesh import TriangleMesh as RMesh
 from myraytracer_tpu.models.scene import Scene as RScene
 from myraytracer_tpu.ops import tracer as rtr
+from myraytracer_tpu.ops.render import (
+    render_loss_grad_image as r_loss_grad_image)
+from myraytracer_tpu.parallel.shard_render import (
+    split_params as r_split_params)
 from myraytracer_tpu.scenes.shapes import uv_sphere as r_uv_sphere
 
+from myraytracer_tpu_torch.inverse import InverseRenderer
 from myraytracer_tpu_torch.models.material import Material
 from myraytracer_tpu_torch.models.mesh import FLAT, TriangleMesh
 from myraytracer_tpu_torch.models.scene import Scene
 from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import render as prender
 from myraytracer_tpu_torch.ops import shade
+from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops import tracer as tr
+from myraytracer_tpu_torch.parallel.shard_render import split_params
+from myraytracer_tpu_torch.scenes import kinds
 from myraytracer_tpu_torch.scenes.shapes import uv_sphere
 
-from test_torch_graphs import PLAIN, REF_CFG, NoHostRead, _unwatched
+from test_torch_graphs import (GRAD_REL, PLAIN, REF_CFG, NoHostRead,
+                               _unwatched)
+from test_torch_graphs import regions  # noqa: F401  (a fixture)
 from test_torch_graphs import dead_scene
 from test_torch_scene import to_port
 
@@ -79,13 +91,15 @@ def branching(skip: bool = False):
         yield seen
 
 
-def tiles_scene(pkg: str, w: int = 64, h: int = 64):
+def tiles_scene(pkg: str, w: int = 64, h: int = 64, floor: str = "plane"):
     """A mirror floor below the horizon and a mirror mesh sphere on it at
     the left, max_depth 3, 64x64 (four 32x32 screen blocks). Traced in
     tiles of one block: the top right block sees only the sky, so its
     segments 1.. are dead; the other blocks live through segment 1, and
     the bottom left one, where the sphere and the floor reflect each
-    other, through segment 3."""
+    other, through segment 3. ``floor="mesh"`` makes the floor a
+    two-triangle quad: a triangle-only scene, which trains through the
+    fused K5/K6 segment."""
     if pkg == "ref":
         S, Mat, Mesh, flat, sphere = (RScene, RMaterial, RMesh, RFLAT,
                                       r_uv_sphere)
@@ -99,8 +113,15 @@ def tiles_scene(pkg: str, w: int = 64, h: int = 64):
     s.ambience = (0.1, 0.1, 0.12)
     s.background = (0.05, 0.1, 0.2)
     s.max_depth = 3
-    s.add_plane((0, -0.4, 0), (0, 1, 0), Mat(
-        ambient=(0.1, 0.1, 0.1), diffuse=(0.3, 0.4, 0.3), mirror=0.5))
+    floor_mat = Mat(ambient=(0.1, 0.1, 0.1), diffuse=(0.3, 0.4, 0.3),
+                    mirror=0.5)
+    if floor == "plane":
+        s.add_plane((0, -0.4, 0), (0, 1, 0), floor_mat)
+    else:
+        s.add_mesh(Mesh(np.float32([[-4, -0.4, -4], [4, -0.4, -4],
+                                    [4, -0.4, 4], [-4, -0.4, 4]]),
+                        np.int32([[0, 2, 1], [0, 3, 2]]), material=floor_mat,
+                        draw_mode=flat))
     v, f = sphere(0.4, 8, 12)
     v = np.asarray(v) + np.array([-0.8, 0.0, 0.0])
     s.add_mesh(Mesh(v, f, material=Mat(
@@ -345,3 +366,338 @@ def test_failure_site_keeps_the_segment_of_an_if_node_error():
         site = graphs._failure_site(e)
     assert "segment 3 of trace_topology" in site
     assert "test_torch_cond.py" in site and "in body" in site
+
+
+# --- trace_shade's conditional segments (tracer._CondSegment) --------------
+#
+# Segments 1.. of the differentiable replay run their forward and their
+# backward each under an IF node on (hit | miss).any(), "segment s of
+# trace_shade" and "segment s of trace_shade (backward)": the
+# reference's lax.cond, whose VJP is a cond too.
+
+#: the InverseRenderer leaves of the fit-step cases
+FIT_PARAMS = ("mat_diffuse", "mat_mirror", "light_pos", "light_color",
+              "vertex_pos", "background")
+
+
+@pytest.fixture(scope="module")
+def tiles_tri():
+    return _scene_case(lambda pkg: tiles_scene(pkg, floor="mesh"))
+
+
+#: (scene fixture, fused_shade_grad) of the branch-against-select cases:
+#: the plane of "tiles" sends it through the autograd replay either way
+SHADE_CASES = [("dead", True), ("dead", False), ("tiles", False),
+               ("tiles_tri", True), ("tiles_tri", False)]
+
+
+def _shade_case(request, name, fused):
+    case = request.getfixturevalue(name)
+    cfg = tr.TraceConfig(fused_shade_grad=fused)
+    assert cfg.fused_grad(case["port"]) == fused
+    return case, cfg
+
+
+def _loss_grad(case, cfg, tile=None):
+    cam = case["cam"]
+    tgt = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (cam.height, cam.width, 3)).astype(np.float32))
+    return prender.render_loss_grad_image(case["port"], cam, tgt, cfg, tile)
+
+
+def _fit_step(case, cfg, rays=slice(None)):
+    """One InverseRenderer step on the frame's ``rays``: (loss, each
+    leaf's gradient, each leaf after the Adam step)."""
+    o, d = case["o"][rays], case["d"][rays]
+    tgt = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, tuple(o.shape)).astype(np.float32))
+    inv = InverseRenderer(case["port"], FIT_PARAMS, cfg=cfg)
+    loss = inv.fit(o, d, tgt, steps=1).losses[0]
+    return loss, {k: p.grad.clone() for k, p in inv.params.items()}, {
+        k: p.detach().clone() for k, p in inv.params.items()}
+
+
+def _shade_sites(seen):
+    return [(site, took) for site, took in seen if "trace_shade" in site]
+
+
+@pytest.mark.parametrize("name,fused", SHADE_CASES)
+@pytest.mark.parametrize("entry", ["loss_grad", "fit"])
+def test_trace_shade_through_the_branch_equals_select(request, name, fused,
+                                                      entry):
+    """(a) The training step (in tiles of one screen block on "tiles",
+    which die apart) and an InverseRenderer step (on "tiles", the rays of
+    the top two blocks: the sky's and one that lives through segment 1)
+    give the select path's loss and gradients, and the step's
+    parameters, to the bit."""
+    case, cfg = _shade_case(request, name, fused)
+    tiles = name.startswith("tiles")
+    fn = ((lambda: _loss_grad(case, cfg, 1024 if tiles else None))
+          if entry == "loss_grad" else
+          (lambda: _fit_step(case, cfg, slice(0, 2048 if tiles else None))))
+    want = fn()
+    with branching() as seen:
+        got = fn()
+    took = [t for _, t in _shade_sites(seen)]
+    assert any(took) and not all(took)
+    assert float(got[0]) == float(want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert list(g) == list(w)
+        for k in w:
+            assert torch.isfinite(g[k]).all() and torch.equal(g[k], w[k]), k
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_trace_shade_sites_and_conditions(dead, fused):
+    """(b) The stand-in sees each segment's forward, then the backwards in
+    reverse, with the segment's condition: 1 live, 2 and 3 dead."""
+    with branching() as seen:
+        _loss_grad(dead, tr.TraceConfig(fused_shade_grad=fused))
+    site = "segment {} of trace_shade"
+    assert _shade_sites(seen) == (
+        [(site.format(s), s == 1) for s in (1, 2, 3)]
+        + [(site.format(s) + " (backward)", s == 1) for s in (3, 2, 1)])
+
+
+def _segment_inputs(case, fused: bool, s: int = 1):
+    """A conditional segment of the dead scene's replay, its condition and
+    its inputs (leaves that require a gradient): segment s's record, the
+    carry segment 0 leaves, the scene tensors the segment reads."""
+    port, o, d = case["port"], case["o"], case["d"]
+    topo = tr.trace_topology(port, o, d)
+    rec = tuple(getattr(topo, f)[s] for f in TOPO_FIELDS)
+    geom = shade.pack_shade_geom(port)
+    site = f"segment {s} of trace_shade"
+    seg, tensors = (tr._fused_cond(port, geom, rec, False, site) if fused
+                    else tr._replay_cond(port, geom, rec, "nearest", site,
+                                         keep=False))
+    first = tr._replay_segment(port, geom, tr.Bounce(
+        o, d, torch.ones(o.shape[0]), torch.zeros_like(o)), tuple(
+            getattr(topo, f)[0] for f in TOPO_FIELDS), "nearest")
+    inputs = [t.detach().clone().requires_grad_(True)
+              for t in (*first, *tensors)]
+    return seg, (rec[2] | rec[3]).any(), inputs
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("keep", [False, True])
+def test_skipped_segment_passes_the_dead_cotangents(dead, fused, keep):
+    """(c) A body forced to skip: the outputs are the carry and the
+    cotangents a dead segment's, the carry's output cotangents unchanged
+    and zeros for every scene tensor, to the bit. Run, the same segment
+    gives the select path's outputs and cotangents to the bit."""
+    seg, pred, inputs = _segment_inputs(dead, fused)
+    seg = dataclasses.replace(seg, keep=keep)
+    assert bool(pred)
+    rng = np.random.default_rng(11)
+    want = tr._CondSegment.apply(seg, pred, *inputs)
+    cots = [torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(
+        np.float32)) for y in want]
+    want_g = torch.autograd.grad(want, inputs, cots)
+    for skip in (True, False):
+        with branching(skip=skip) as seen:
+            out = tr._CondSegment.apply(seg, pred, *inputs)
+            grads = torch.autograd.grad(out, inputs, cots)
+        assert seen == [("segment 1 of trace_shade", True),
+                        ("segment 1 of trace_shade (backward)", True)]
+        if not skip:
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+            assert all(torch.equal(a, b) for a, b in zip(grads, want_g))
+            continue
+        for y, x in zip(out, inputs[:4]):
+            assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+        for g, c in zip(grads[:4], cots):
+            assert torch.equal(g, c)
+        for g, x in zip(grads[4:], inputs[4:]):
+            assert g.shape == x.shape and not g.any()
+
+
+def test_segment_inputs_hold_every_tensor_the_replay_reads():
+    """A tensor the replay only closed over would lose its gradient: with
+    every float scene tensor but REPLAY_FIELDS cut from the graph, the
+    autograd replay of a scene with every kind and textures still reaches
+    its inputs, and no other scene tensor."""
+    ref = kinds.mixed_scene(mirror=0.4, w=16, h=12)
+    port = ref.build(device="cpu")
+    o, d = prender.primary_rays_blocked(ref.camera, "cpu")
+    topo = tr.trace_topology(port, o, d)
+    rec = tuple(getattr(topo, f)[1] for f in TOPO_FIELDS)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in split_params(port).items()}
+    scene = dataclasses.replace(port, **leaves)
+    geom = shade.pack_shade_geom(scene)
+    geom = shade.ShadeGeom(geom.tri_pack.detach(), geom.mat16.detach(),
+                           geom.ana16.detach())
+    cut = dataclasses.replace(scene, **{f: getattr(port, f)
+                                        for f in tr.REPLAY_FIELDS})
+    carry = tr.Bounce(o, d, torch.ones(o.shape[0]), torch.zeros_like(o))
+    out = tr._replay_segment(cut, geom, carry, rec, "bilinear")
+    assert not any(y.requires_grad for y in out)
+    seg, tensors = tr._replay_cond(scene, geom, rec, "bilinear", "s", False)
+    assert len(tensors) == 2 + len(tr.REPLAY_FIELDS)
+    for f in tr.REPLAY_FIELDS:
+        assert any(t is leaves[f] for t in tensors), f
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_trace_shade_bodies_make_no_host_read(dead, regions, fused):
+    """(d) Neither body of any segment reads the host: the training step
+    and a fit step, each region that graphs.run would capture under
+    NoHostRead (test_torch_graphs' ``regions``), the stand-in's own read
+    of the condition apart."""
+    cfg = tr.TraceConfig(fused_shade_grad=fused)
+    inv = InverseRenderer(dead["port"], FIT_PARAMS, cfg=cfg)
+    inv.optimizer.step = _unwatched(inv.optimizer.step)
+    o, d = dead["o"], dead["d"]
+    with branching() as seen:
+        loss, grads = _loss_grad(dead, cfg)
+        fit = inv.fit(o, d, torch.zeros_like(o), steps=1)
+    assert regions == ["render_loss_grad_image", "fit_step"]
+    assert len(_shade_sites(seen)) == 12
+    assert bool(torch.isfinite(loss)) and np.isfinite(fit.losses).all()
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+def test_failing_if_node_in_the_backward_raises_naming_the_segment(dead):
+    """(e) The forward's nodes are made, the backward's first node fails:
+    GraphCaptureError names the backward's segment, and no backward body
+    ran."""
+    ran = []
+    if_node = graphs.if_node
+
+    def stand_in(pred, body, site):
+        if site.endswith("(backward)"):
+            if_node(pred, lambda: ran.append(site), site)
+        elif bool(pred.item()):
+            body()
+
+    with mock.patch.object(graphs, "capturing", lambda device: True), \
+            mock.patch.object(tr.graphs, "if_node", stand_in):
+        with pytest.raises(graphs.GraphCaptureError,
+                           match=r"segment 3 of trace_shade \(backward\): an "
+                                 r"IF node is captured only inside"):
+            _loss_grad(dead, tr.TraceConfig())
+    assert not ran
+
+
+def test_backward_off_the_capturing_stream_raises(dead):
+    """A forward captured under IF nodes whose backward runs where no
+    capture is on (an autograd thread on another stream) raises, naming
+    the segment's backward, and runs no body unconditionally."""
+    capturing = [True]
+    seg, pred, inputs = _segment_inputs(dead, False)
+    with branching() as seen, mock.patch.object(
+            graphs, "capturing", lambda device: capturing[0]):
+        out = tr._CondSegment.apply(seg, pred, *inputs)
+        capturing[0] = False
+        with pytest.raises(graphs.GraphCaptureError,
+                           match=r"segment 1 of trace_shade \(backward\): "
+                                 r"the backward runs off the capturing"):
+            torch.autograd.grad(out[3].sum(), inputs[3])
+    assert seen == [("segment 1 of trace_shade", True)]
+
+
+# --- a live later segment: parity with the reference and work per step -----
+
+def live_scene(what: str, pkg: str):
+    """A small scene whose segment 1 is live: "analytic", mirror sphere,
+    plane and mesh reflecting each other; "texture", the textured quads
+    over a mirror plane; "fused", a mirror mesh sphere over a mirror
+    two-triangle floor (triangle-only: the fused K5/K6 segment)."""
+    api = kinds.PORT_API if pkg == "port" else (
+        RScene, RMaterial, RMesh, RPHONG, RFLAT, r_uv_sphere)
+    if what == "analytic":
+        return kinds.mixed_scene(mirror=0.4, cyl=False, w=24, h=20, api=api)
+    if what == "texture":
+        s = kinds.textured_scene(w=24, h=20, api=api)
+        s.add_plane((0, -0.9, 0), (0, 1, 0), api[1](
+            diffuse=(0.4, 0.4, 0.4), mirror=0.5))
+        s.max_depth = 2
+        return s
+    s = tiles_scene(pkg, w=24, h=20, floor="mesh")
+    s.max_depth = 2
+    return s
+
+
+#: which kinds segment 1 must hit in each live scene
+LIVE_KINDS = {"analytic": (shade.KIND_SPHERE, shade.KIND_PLANE,
+                           shade.KIND_TRI),
+              "texture": (shade.KIND_TRI,), "fused": (shade.KIND_TRI,)}
+
+
+def _count_calls(monkeypatch, mod, names):
+    counts = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(mod, name)
+
+        def counted(*a, _f=fn, _n=name):
+            counts[_n] += 1
+            return _f(*a)
+        monkeypatch.setattr(mod, name, counted)
+    return counts
+
+
+@pytest.mark.parametrize("what", list(LIVE_KINDS))
+def test_live_later_segment_matches_reference_and_its_work(what,
+                                                           monkeypatch):
+    """Segment 1 live: the training step meets the reference's
+    value_and_grad (loss rtol 1e-5, every gradient within 5e-4 x max|a|,
+    split_params' keys). Per step, a live segment's autograd replay runs
+    twice in the checkpointed training step (forward, and recomputed in
+    its backward) and once in the fit step (its graph kept); the fused
+    segment runs K5 once and K6 once; a dead segment runs nothing."""
+    ref = live_scene(what, "ref").build()
+    port = to_port(ref)
+    cam = live_scene(what, "port").camera
+    fused = what == "fused"
+    cfg = tr.TraceConfig(texture_filter="nearest")
+    assert cfg.fused_grad(port) == fused and port.n_segments == 3
+    o, d = prender.primary_rays_blocked(cam, "cpu")
+    topo = tr.trace_topology(port, o, d)
+    live = (topo.hit | topo.miss).any(dim=1).tolist()
+    assert live[:2] == [True, True]
+    for k in LIVE_KINDS[what]:
+        assert bool((topo.kind[1] == k).any()), k
+    if what == "texture":
+        ti = topo.idx[1][topo.kind[1] == shade.KIND_TRI].long()
+        assert bool((port.tri_tex[ti, 0] > 0).any())
+
+    target = np.random.default_rng(len(what)).uniform(
+        0, 1, (cam.height, cam.width, 3)).astype(np.float32)
+    r_loss, r_grads = r_loss_grad_image(
+        ref, live_scene(what, "ref").camera, jnp.asarray(target),
+        cfg=rtr.TraceConfig(tri_method="brute"))
+    loss, grads = prender.render_loss_grad_image(
+        port, cam, torch.from_numpy(target), cfg)
+    np.testing.assert_allclose(float(loss), float(r_loss), rtol=1e-5)
+    assert list(grads) == list(r_split_params(ref)) == list(
+        split_params(port))
+    for k, want in r_grads.items():
+        got, want = grads[k].numpy(), np.asarray(want)
+        assert got.shape == want.shape and np.isfinite(got).all(), k
+        tol = GRAD_REL * max(float(np.abs(want).max()) if want.size else 0.0,
+                             1e-3)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=k)
+
+    n_live = sum(live)
+    names = (("segment_fwd", "segment_bwd") if fused
+             else ("_replay_segment",))
+    counts = _count_calls(monkeypatch, sg if fused else tr, names)
+    case = dict(port=port, o=o, d=d)
+    per_step = {}
+    with branching():
+        for entry in ("loss_grad", "fit"):
+            for k in counts:
+                counts[k] = 0
+            if entry == "loss_grad":
+                prender.render_loss_grad_image(
+                    port, cam, torch.from_numpy(target), cfg)
+            else:
+                _fit_step(case, cfg)
+            per_step[entry] = dict(counts)
+    if fused:
+        want = {"segment_fwd": n_live, "segment_bwd": n_live}
+        assert per_step == {"loss_grad": want, "fit": want}
+    else:
+        assert per_step == {"loss_grad": {"_replay_segment": 2 * n_live},
+                            "fit": {"_replay_segment": n_live}}

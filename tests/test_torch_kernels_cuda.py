@@ -887,6 +887,58 @@ def test_graphed_dead_segments_skip_and_equal_eager(cuda, method, entry):
         assert torch.equal(got, want)
 
 
+#: the IF nodes of one dead-scene training or fit step: segments 1 to 3
+#: of trace_topology, of trace_shade's forward and of its backward
+SHADE_SITES = ([f"segment {s} of trace_topology" for s in (1, 2, 3)]
+               + [f"segment {s} of trace_shade" for s in (1, 2, 3)]
+               + [f"segment {s} of trace_shade (backward)" for s in (3, 2, 1)])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("entry", ["loss_grad", "fit"])
+def test_graphed_trace_shade_skips_dead_segments(cuda, fused, entry):
+    """The training step and the fit step on the dead scene, through the
+    fused K5/K6 segment and the autograd replay: the capture holds nine IF
+    nodes (SHADE_SITES); a replay runs segment 1's three bodies and skips
+    the six of segments 2 and 3, trace_shade's forward and backward
+    among them; graphed equals eager (the loss within rtol 1e-6 and
+    gradients within 5e-4 x max|eager|; fit losses within rtol 1e-5)."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+
+    graphs.clear()
+    data, cam = _dead_scene(cuda)
+    cfg = tr.TraceConfig(fused_shade_grad=fused)
+    assert cfg.fused_grad(data) == fused
+    tgt = 0.9 * render(data, cam, cfg) + 0.02
+    nodes = graphs.COUNTS["if_nodes"]
+    if entry == "loss_grad":
+        fn = lambda: render_loss_grad_image(data, cam, tgt, cfg)  # noqa: E731
+        want, _ = _eager(fn)
+        got, _, moved = _three_calls(fn)
+        assert moved["replays"] == 1 and moved["captures"] == 0
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+        for k in want[1]:
+            assert bool(torch.isfinite(got[1][k]).all()), k
+            _close_scaled(got[1][k], want[1][k], k, rel=5e-4)
+    else:
+        xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+
+        def fit():
+            inv = InverseRenderer(data, ("mat_diffuse", "mat_mirror",
+                                         "light_color"),
+                                  optimizer=adam(0.02), camera=cam, cfg=cfg)
+            return [inv.fit_pixels(xs, ys, tgt.reshape(-1, 3),
+                                   steps=1).losses[0] for _ in range(4)]
+
+        want, _ = _eager(fit)
+        got = fit()                     # warm-ups, a capture, a replay
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert graphs.COUNTS["if_nodes"] - nodes == len(SHADE_SITES)
+    sites = graphs.body_sites()
+    assert sites == [(site, " 1 " in site) for site in SHADE_SITES]
+    assert graphs.count_bodies() == (3, 6)
+
+
 def test_if_node_skips_and_runs_by_the_condition(cuda):
     """One region, one IF node: a replay runs the body where the
     condition holds and leaves its buffer alone where it does not; the

@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile.py [--fwd-bwd] [--scene NAME] [--segments N]
         [--tri-method {cluster,bvh,brute}] [--eager] [--trace out.json]
+        [--reps N]
 
 Runs office (tess 10, 1920x1080) twice to build, warm up and capture its
 CUDA graph, then five times under torch.profiler, and prints: the wall
@@ -21,7 +22,10 @@ resolution and budget, or with ``--fwd-bwd`` its training step.
 N - 1): where the segments cut are dead, the results stay the same and
 the time saved is what those segments cost. ``--tri-method`` picks the
 triangle method (``TraceConfig.tri_method``; default "cluster", the
-scan; "bvh" the walk K7). ``--trace`` also writes a Chrome trace.
+scan; "bvh" the walk K7). ``--trace`` also writes a Chrome trace. It
+also prints the peak ``max_memory_reserved`` of the run and, with
+``--fwd-bwd``, the gradient entries that are not finite. ``--reps``
+sets the profiled runs (5).
 Needs a CUDA device.
 """
 
@@ -81,8 +85,10 @@ def main() -> int:
     ap.add_argument("--eager", action="store_true",
                     help="run eagerly (disable_graphs), not graph replays")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--reps", type=int, default=5,
+                    help="profiled runs (default 5)")
     args = ap.parse_args()
-    reps, tess, width, height = 5, 10, 1920, 1080
+    reps, tess, width, height = args.reps, 10, 1920, 1080
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -123,6 +129,8 @@ def main() -> int:
         def step():
             return render(data, scene.camera, cfg=cfg)
     mode = disable_graphs() if args.eager else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with mode:
         step()          # eager: the warm-up; graphed: the key's warm-up
         step()          # graphed: the capture and its first replay
@@ -131,7 +139,7 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(reps):
-                step()
+                out = step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) / reps
 
@@ -159,6 +167,12 @@ def main() -> int:
     print(f"wall {wall * 1e3:.3f} ms/{what} (profiled), device busy "
           f"{busy:.3f} ms/{what} ({100 * busy / (wall * 1e3):.1f}% of the "
           f"window), of which the port's CUDA kernels {own:.3f} ms")
+    print(f"max_memory_reserved {torch.cuda.max_memory_reserved() / 2**30:.3f}"
+          f" GiB over the warm-up, the capture and the runs")
+    if args.fwd_bwd:
+        bad = {k: int((~torch.isfinite(g)).sum()) for k, g in out[1].items()}
+        print(f"gradient entries not finite: "
+              f"{ {k: n for k, n in bad.items() if n} }")
     if args.fwd_bwd and args.eager:
         print(f"{'phase':>14} {'host ms':>9} {'device ms':>10}")
         for name, host, dev in phase_split(prof, reps):
