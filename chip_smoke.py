@@ -76,7 +76,8 @@ nvcc. Phases:
      o_08_office; each PNG against render / render_aa called directly
      with tri_method="auto", demo.sce's kernel render against its
      plain-version render (>= 99.5% of pixels within 1e-4), seconds and
-     launches of each CLI call;
+     launches of each CLI call and the build seconds it prints (the
+     native BVH, Scene.build's default where g++ is found);
  18. inverse rendering on office at 1920x1080 over every pixel
      (InverseRenderer.fit_pixels, "auto"): five Adam steps on mat_diffuse
      and light_color toward a darker render (the loss falls, losses and
@@ -87,7 +88,8 @@ nvcc. Phases:
  19. the port's bench (myraytracer_tpu_torch.bench) at 1920x1080, tess
      10, in process: its JSON lines, each printed after "bench: "; its
      last line must hold every key, stage fwd_bwd, a covering AA budget
-     and the card's name and power limit as its device.
+     and the card's name and power limit as its device; its
+     scene_build_s printed.
 
 Phases 17 to 19 run the "bvh" path (tri_method="auto"): each sets the
 launch counts to 0 just before it and checks after it that the walk, K3
@@ -99,23 +101,39 @@ scan's kernels were not.
      sizes it), one sharded SGD step (loss_grad_sharded and
      make_train_step on the screen-block batch) and three Adam steps of
      InverseRenderer(mesh=...) on mat_diffuse (parallel/dryrun.run_suite,
-     each part twice, the second timed): first on one device, then at
-     world size 1 over NCCL in this process, then at world size 2 over
-     gloo, two ranks on cuda:0 spawned by parallel/dryrun.spawn (the
-     scene through replicate_global; make_mesh(3) and replicate_global
-     of a different tensor on each rank must raise). Each rank's
+     each part three times, the third timed: on the card a replay of a
+     captured graph): first on one device, then at world size 1 over NCCL
+     in this process, graphed and under disable_graphs(), then at world
+     size 2 over gloo, two ranks on cuda:0 spawned by
+     parallel/dryrun.spawn (the scene through replicate_global;
+     make_mesh(3) and replicate_global of a different tensor on each rank
+     must raise). At world size 1 each part's third call must replay (the
+     fit's third step captures and replays) and equal its eager run:
+     images bit-equal, launches equal, the step's loss within rtol 1e-6
+     and its parameters within lr / n_total x REL_GRAD x max|eager
+     gradient| plus one ulp, fit losses within rtol 1e-5; five fit steps
+     with a checkpoint saved (an eager barrier on the group) between the
+     replays of steps 4 and 5; the render, AA and step timed in turns
+     against eager (10 pairs); o_04's sharded render_aa and step (bvh) in
+     5 pairs, whose captures must hold 4 and 6 IF nodes and skip 2 and 3
+     bodies a replay. At world size 2 over gloo no graph is warmed up,
+     captured or replayed (eager by rule). Each rank's
      launches per part (K2, K1, K1', K3 and K4 for the render and AA;
      the cluster scan, K3, K5 and K6 for the step; the walk, K3, K4, K5
      and K6, and no cluster kernel, for the fit), held against the
      single-device results: images >= 99.5% of pixels within 1e-4 (at
      world size 1 equal bit for bit), the loss within rtol 1e-5, every
      gradient within REL_GRAD * max|single|, the fit's losses within
-     rtol 1e-5; wall seconds beside the single device's;
+     rtol 1e-5; wall seconds beside the single device's (third calls);
  21. the native BVH builder (runtime/native.py) against NumPy on office
      tess 10 and tess 28: BVH seconds and whole Scene.build seconds of
-     each, which arrays are equal, and a 480x270 render of the
+     each and of the default (which must be the native builder: g++ is
+     on this host), which arrays are equal, and a 480x270 render of the
      native-built scene against the NumPy-built one (>= 99.5% of pixels
-     within 1e-4);
+     within 1e-4); on tess 28 (110,572 triangles, 1,356 clusters) the
+     cluster scan (K2 + K1) against the walk (K7) on the 480x270 primary
+     rays: hit masks and ids agree on >= 99.5%, t within rtol 5e-5 where
+     the ids agree;
  22. the port's inverse demo (examples/inverse_demo_torch.py) at its
      defaults on the card: each of its three fits lowers its loss, its
      seconds;
@@ -1335,6 +1353,9 @@ def cli_render(dev):
     without --aa, and --golden o_08_office. Each PNG against render or
     render_aa called directly with "auto"; demo.sce's kernel render
     against its plain-version render."""
+    import contextlib
+    import io
+    import re
     import tempfile
 
     import numpy as np
@@ -1361,11 +1382,16 @@ def cli_render(dev):
         for name, args, make, fn in runs:
             torch.cuda.synchronize()
             reset_launches()
+            said = io.StringIO()
             t = time.perf_counter()
-            rc = cli.main(["render", *args, "--out", out])
+            with contextlib.redirect_stdout(said):
+                rc = cli.main(["render", *args, "--out", out])
             secs = time.perf_counter() - t
             launches = dict(LAUNCHES)
             check(rc == 0, f"cli render {name}: exit code {rc}")
+            build = re.search(r"build ([0-9.]+)s", said.getvalue())
+            check(build is not None, f"cli render {name}: no build seconds "
+                  f"in {said.getvalue()!r}")
             png = read_png(out)
             sc = make()
             data = sc.build(device=dev)
@@ -1374,7 +1400,8 @@ def cli_render(dev):
             same = float((np.abs(png - want).max(axis=-1)
                           <= 1 / 255 + 1e-6).mean())
             line = (f"cli render {name} {sc.camera.width}x{sc.camera.height}: "
-                    f"{secs:.3f} s (build, render, PNG); {same:.6f} of pixels "
+                    f"{secs:.3f} s (build, render, PNG), its build (native "
+                    f"BVH) {build.group(1)} s; {same:.6f} of pixels "
                     f"within 1/255 of {fn.__name__} called directly")
             check(png.shape == (sc.camera.height, sc.camera.width, 3),
                   f"cli render {name}: PNG shape {png.shape}")
@@ -1493,7 +1520,8 @@ def bench_office():
         print("bench: " + line)
     check(rc == 0 and lines, f"bench: exit code {rc}, {len(lines)} lines")
     last = json.loads(lines[-1])
-    print(f"bench: {len(lines)} lines in {secs:.2f} s; launches {launches}")
+    print(f"bench: {len(lines)} lines in {secs:.2f} s; scene_build_s "
+          f"{last['scene_build_s']} (native BVH); launches {launches}")
     missing = set(bench.KEYS) - set(last)
     check(not missing, f"bench: the last line lacks {sorted(missing)}")
     check(last["stage"] == "fwd_bwd", f"bench: stage {last['stage']}")
@@ -1565,13 +1593,221 @@ def suite_launches(what: str, launches: dict) -> None:
                BVH_FWD_KERNELS + ("seg_fwd", "seg_bwd"))
 
 
+def same_step(what, grads, n_total: float, lr: float):
+    """The sharded SGD step graphed against eager, on (scene' or its
+    parameters, loss) pairs: the loss within
+    GRAPH_LOSS_RTOL, and every parameter after the step within
+    lr / n_total x REL_GRAD x max|g| of the eager step's plus one ulp of
+    its value, where g is the eager gradient (``grads``): the gradient
+    bar carried through p - lr g / n_total, whose result is rounded to
+    fp32. Returns the comparator."""
+    import torch
+
+    from myraytracer_tpu_torch.parallel.shard_render import split_params
+
+    def params(x):
+        return x if isinstance(x, dict) else split_params(x)
+
+    def compare(got, want):
+        (a_new, a_loss), (b_new, b_loss) = got, want
+        rel = abs(float(a_loss) - float(b_loss)) / abs(float(b_loss))
+        check(rel <= GRAPH_LOSS_RTOL, f"{what}: loss rel diff {rel}")
+        a_p, b_p = params(a_new), params(b_new)
+        worst = 0.0
+        for k, b in b_p.items():
+            if not b.numel():
+                continue
+            a, b, g = a_p[k].cpu(), b.cpu(), grads[k].cpu()
+            check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+                  f"{what}: parameter {k} not finite")
+            bar = lr / n_total * REL_GRAD * max(float(g.abs().max()), 1e-30)
+            ulp = (torch.nextafter(b, torch.full_like(b, math.inf)) - b).abs()
+            ratio = float(((a - b).abs() - ulp).clamp(min=0).max()) / bar
+            check(ratio <= 1.0, f"{what}: parameter {k} off by {ratio} x its "
+                  f"bar (lr / n_total x REL_GRAD x max|g|, plus one ulp)")
+            worst = max(worst, ratio)
+        return (f"loss {float(a_loss)} vs eager {float(b_loss)} (rel "
+                f"{rel:.3g}), parameters after the step within {worst:.3g} x "
+                f"the gradient bar")
+    return compare
+
+
+def ws1_graph_calls(fit_steps: int) -> dict:
+    """Phase 20: the graph calls (warm-ups, captures, replays) due in the
+    third call of each run_suite part at world size 1 over NCCL: a
+    replay, of pass 1 and the refine for render_aa; for a fit of
+    ``fit_steps`` steps from a new renderer, two warm-ups (without and
+    with the optimizer's state), the capture and its replay, then
+    replays."""
+    return {"render": (0, 0, 1), "render_aa": (0, 0, 2),
+            "train_step": (0, 0, 1), "fit": (2, 1, fit_steps - 2)}
+
+
+def calls_of(moved: dict) -> tuple:
+    """(warm-ups, captures, replays) of a graphs.COUNTS difference."""
+    return moved["warm_ups"], moved["captures"], moved["replays"]
+
+
+def sharded_fit_checkpoint(case, mesh, steps: int = 5, save_after: int = 4):
+    """Phase 20: InverseRenderer(mesh=...) on the suite's fit, ``steps``
+    single steps graphed, with a checkpoint saved (a barrier on the
+    group, eagerly, between replays) after step ``save_after``, against
+    the same steps eager; the checkpoint restored into a new renderer."""
+    import tempfile
+
+    import torch
+
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+    from myraytracer_tpu_torch.ops import graphs
+    from myraytracer_tpu_torch.parallel import dryrun
+
+    def renderer():
+        return InverseRenderer(case.fit_start, case.fit_names,
+                               optimizer=adam(dryrun.FIT_LR), mesh=mesh)
+
+    def one(inv):
+        return inv.fit(case.fit_o, case.fit_d, case.fit_target,
+                       steps=1).losses[0]
+
+    with graphs.disable_graphs():
+        inv = renderer()
+        eager = [one(inv) for _ in range(steps)]
+    inv, losses, calls = renderer(), [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(steps):
+            before = dict(graphs.COUNTS)
+            losses.append(one(inv))
+            calls.append(calls_of({k: graphs.COUNTS[k] - before[k]
+                                   for k in before}))
+            if i + 1 == save_after:
+                inv.save_checkpoint(tmp)
+                saved = {k: v.detach().clone() for k, v in inv.params.items()}
+        again = renderer()
+        again.restore_checkpoint(tmp)
+    want = [(1, 0, 0), (1, 0, 0), (0, 1, 1)] + [(0, 0, 1)] * (steps - 3)
+    check(calls == want, f"sharded fit: graph calls (warm-ups, captures, "
+          f"replays) per step {calls}, where {want} were due")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager))
+    check(rel <= GRAPH_FIT_RTOL, f"sharded fit: losses graphed {losses}, "
+          f"eager {eager}")
+    check(losses[-1] < losses[0], f"sharded fit: the loss did not fall")
+    check(again.step_count == save_after and all(
+        torch.equal(again.params[k], v) for k, v in saved.items()),
+        "sharded fit: the checkpoint saved between replays differs")
+    print(f"sharded: world size 1 (NCCL) fit, {steps} single steps with a "
+          f"checkpoint saved after step {save_after}: graph calls per step "
+          f"{calls}; losses graphed {losses}, eager {eager} (rel "
+          f"{rel:.3g}); the checkpoint restored equal")
+
+
+def sharded_graphs(dev, case, mesh, ws1: dict, eager: dict) -> dict:
+    """Phase 20 at world size 1 over NCCL: run_suite graphed (third call)
+    against eager (disable_graphs), each part in turns, o_04's sharded
+    render_aa and step with their IF nodes, and the fit with a
+    checkpoint between replayed steps. Returns the timings in turns."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import graphs
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render
+    from myraytracer_tpu_torch.parallel import dryrun
+    from myraytracer_tpu_torch.parallel import shard_render as sr
+    from myraytracer_tpu_torch.parallel.distributed import replicate_global
+    from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
+
+    what = "world size 1 (NCCL)"
+    want = ws1_graph_calls(case.fit_steps)
+    for part, due in want.items():
+        got = calls_of(ws1["graph_calls"][part])
+        check(got == due, f"{what} {part}: the third call's graph calls "
+              f"(warm-ups, captures, replays) {got}, where {due} were due")
+        check(not any(eager["graph_calls"][part].values()),
+              f"{what} {part}: an eager call used a graph")
+        check(ws1["launches"][part] == eager["launches"][part],
+              f"{what} {part}: launches graphed {launched(ws1['launches'])}"
+              f", eager {launched(eager['launches'])}")
+    for k in ("img", "img_aa"):
+        check(torch.equal(ws1[k], eager[k]), f"{what} {k}: graphed differs "
+              f"from eager by {float((ws1[k] - eager[k]).abs().max())}")
+    n_total, lr = eager["n_total"], dryrun.SUITE_LR
+    step_line = same_step(f"{what} train_step", eager["grads"], n_total, lr)(
+        (ws1["params"], ws1["loss"]), (eager["params"], eager["loss"]))
+    fit_rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(ws1["fit_losses"], eager["fit_losses"]))
+    check(fit_rel <= GRAPH_FIT_RTOL, f"{what} fit: losses graphed "
+          f"{ws1['fit_losses']}, eager {eager['fit_losses']}")
+    secs = {p: f"{ws1['seconds'][p]:.4f} (eager {eager['seconds'][p]:.4f})"
+            for p in ws1["seconds"]}
+    print(f"sharded: {what} graphed against eager, third calls: images "
+          f"bit-equal; train_step {step_line}; fit losses rel {fit_rel:.3g};"
+          f" launches equal; graph calls {ws1['graph_calls']}; seconds "
+          f"{secs}")
+    sharded_fit_checkpoint(case, mesh)
+
+    scene, cam = replicate_global(mesh, case.scene), case.camera
+    batch = dryrun.step_batch(cam, case.target_img, mesh)
+    step = sr.make_train_step(mesh, lr=lr)
+    turns = {
+        "render": graphed_vs_eager(
+            f"{what} office render_sharded",
+            lambda: sr.render_sharded(scene, cam, mesh),
+            same_image(f"{what} render_sharded"), False),
+        "render_aa": graphed_vs_eager(
+            f"{what} office render_aa_sharded (budget {case.budget_frac})",
+            lambda: sr.render_aa_sharded(scene, cam, mesh,
+                                         budget_frac=case.budget_frac),
+            same_image(f"{what} render_aa_sharded"), False),
+        "train_step": graphed_vs_eager(
+            f"{what} office sharded SGD step", lambda: step(scene, *batch),
+            same_step(f"{what} sharded SGD step", eager["grads"], n_total,
+                      lr), False)}
+
+    builder, budget = GOLDEN_SCENES["o_04_molecule"]
+    sc = builder()
+    data, ocam = replicate_global(mesh, sc.build(device=dev)), sc.camera
+    where = f"{what} o_04_molecule {ocam.width}x{ocam.height}"
+    r = turns["o_04_render_aa"] = graphed_vs_eager(
+        f"{where} render_aa_sharded (budget {budget})",
+        lambda: sr.render_aa_sharded(data, ocam, mesh, budget_frac=budget),
+        same_image(f"{where} render_aa_sharded"), True, GOLDEN_PAIRS,
+        skips=True)
+    check(r["if_nodes"] == 4 and r["bodies_skipped"] == 2,
+          f"{where} render_aa_sharded: {r['if_nodes']} IF nodes, "
+          f"{r['bodies_skipped']} skipped per replay, where 4 and 2 were due")
+    cfg = tr.TraceConfig(tri_method="bvh")
+    obatch = dryrun.step_batch(ocam, 0.9 * render(data, ocam, cfg=cfg) + 0.02,
+                               mesh)
+    with graphs.disable_graphs():
+        _, ograds, on = sr.loss_grad_sharded(data, *obatch, mesh, cfg)
+    ostep = sr.make_train_step(mesh, cfg, lr=lr)
+    r = turns["o_04_step"] = graphed_vs_eager(
+        f"{where} sharded SGD step (bvh)", lambda: ostep(data, *obatch),
+        same_step(f"{where} sharded SGD step", ograds, float(on), lr), True,
+        GOLDEN_PAIRS, skips=True)
+    check(r["if_nodes"] == 6 and r["bodies_skipped"] == 3,
+          f"{where} sharded step: {r['if_nodes']} IF nodes, "
+          f"{r['bodies_skipped']} skipped per replay, where 6 and 3 were due")
+    sites = graphs.body_sites("train_step_sharded")
+    print(f"sharded: {where} sharded step: bodies skipped per replay "
+          f"{[site for site, ran in sites if not ran]}")
+    for name, t in turns.items():
+        print(f"sharded: {what} {name} in turns: eager median "
+              f"{t['eager_ms']:.3f} ms, graphed median {t['graphed_ms']:.3f} "
+              f"ms (graphed faster in {t['wins']} of {t['pairs']} pairs, "
+              f"graphed/eager at most {t['max_ratio']:.3f})")
+    return turns
+
+
 def sharded_office(dev, tess: int = 10, full=(1920, 1080)):
     """Phase 20: the sharded render, AA, training step and fit on office
-    at 1920x1080: on one device, at world size 1 over NCCL in process,
-    and at world size 2 over gloo on cuda:0 (parallel/dryrun.spawn)."""
+    at 1920x1080: on one device, at world size 1 over NCCL in process
+    (graphed and eager, sharded_graphs), and at world size 2 over gloo
+    on cuda:0 (parallel/dryrun.spawn), each part three times, the third
+    timed."""
     import torch
     import torch.distributed as dist
 
+    from myraytracer_tpu_torch.ops import graphs
     from myraytracer_tpu_torch.ops.render import render, sized_aa_budget
     from myraytracer_tpu_torch.parallel import dryrun
     from myraytracer_tpu_torch.parallel.mesh import backend_for, make_mesh
@@ -1587,41 +1823,51 @@ def sharded_office(dev, tess: int = 10, full=(1920, 1080)):
     case.budget_frac = kw["budget_frac"]
     print(f"sharded: office tess {tess} {full[0]}x{full[1]} built in "
           f"{time.perf_counter() - t:.2f} s; AA budget {kw['budget_frac']}")
-    one = dryrun.run_suite(case, None, reps=2)
+    one = dryrun.run_suite(case, None, reps=3)
 
     t = time.perf_counter()
     mesh = make_mesh(1, dev)
     try:
-        check(dist.get_backend() == backend_for(kind),
+        check(dist.get_backend() == backend_for(kind) == "nccl",
               f"world size 1: backend {dist.get_backend()}")
-        ws1 = dryrun.run_suite(case, mesh, reps=2)
+        ws1 = dryrun.run_suite(case, mesh, reps=3)
+        with graphs.disable_graphs():
+            ws1_eager = dryrun.run_suite(case, mesh, reps=3)
+        ws1_secs = time.perf_counter() - t
+        turns = sharded_graphs(dev, case, mesh, ws1, ws1_eager)
     finally:
+        # a captured graph holds the group's communicator: drop it first
+        graphs.clear()
         dist.destroy_process_group()
-    ws1_secs = time.perf_counter() - t
     del case
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    ranks = dryrun.spawn("suite", 2, dict(kw, reps=2), device=kind,
+    ranks = dryrun.spawn("suite", 2, dict(kw, reps=3), device=kind,
                          backend="gloo", deadline_s=300)
     ws2_secs = time.perf_counter() - t
 
     secs = {part: f"{one['seconds'][part]:.4f}" for part in one["seconds"]}
-    print(f"sharded: single device: seconds {secs}; loss {one['loss']!r}; "
-          f"fit losses {one['fit_losses']}")
+    print(f"sharded: single device (third calls, graphed): seconds {secs}; "
+          f"loss {one['loss']!r}; fit losses {one['fit_losses']}")
     suite_launches("world size 1 (NCCL)", ws1["launches"])
     line = suite_checks("world size 1 (NCCL)", ws1, one, bit_equal=True)
-    secs = {p: f"{ws1['seconds'][p]:.4f} (single {one['seconds'][p]:.4f})"
+    secs = {p: f"{ws1['seconds'][p]:.4f} (single {one['seconds'][p]:.4f}, "
+               f"x{ws1['seconds'][p] / one['seconds'][p]:.3f})"
             for p in one["seconds"]}
-    print(f"sharded: world size 1 (NCCL, {ws1_secs:.2f} s in all): seconds "
-          f"{secs}; {line}; launches {launched(ws1['launches'])}")
+    print(f"sharded: world size 1 (NCCL, {ws1_secs:.2f} s for the graphed "
+          f"and eager suites): third calls graphed, seconds {secs}; {line}; "
+          f"launches {launched(ws1['launches'])}")
     for r, got in enumerate(ranks):
         what = f"world size 2 (gloo, cuda:0) rank {r}"
         suite_launches(what, got["launches"])
+        check(all(not any(c.values()) for c in got["graph_calls"].values()),
+              f"{what}: graph calls over gloo {got['graph_calls']}")
         line = suite_checks(what, got, one, bit_equal=False)
         secs = {p: f"{got['seconds'][p]:.4f} (single "
                    f"{one['seconds'][p]:.4f})" for p in one["seconds"]}
         print(f"sharded: {what} ({ws2_secs:.2f} s for both ranks, spawn "
-              f"included): seconds {secs}; {line}; launches "
+              f"included): eager by rule, no graph warmed up, captured or "
+              f"replayed; third calls, seconds {secs}; {line}; launches "
               f"{launched(got['launches'])}")
         check(got["mesh_error"] == "need 3 devices, have 2",
               f"{what}: make_mesh(3) gave {got.get('mesh_error')!r}")
@@ -1637,11 +1883,24 @@ def sharded_office(dev, tess: int = 10, full=(1920, 1080)):
           f"{agree:.6f} of pixels within 1e-4 of the single device's, "
           f"bit-equal {torch.equal(alone, one['img'])}; dryrun step loss "
           f"{ranks[0]['dryrun_loss']!r}")
+    print("sharded summary: " + json.dumps({
+        "single": one["seconds"], "ws1_graphed": ws1["seconds"],
+        "ws1_eager": ws1_eager["seconds"],
+        "ws1_turns": {k: {m: v[m] for m in ("eager_ms", "graphed_ms", "wins",
+                                            "pairs", "if_nodes",
+                                            "bodies_skipped")}
+                      for k, v in turns.items()},
+        "ws2": [got["seconds"] for got in ranks]}))
 
 
 def native_builder(dev, tesses=(10, 28), small=(480, 270)):
     """Phase 21: the native BVH builder against NumPy on office: BVH and
-    Scene.build seconds, equal arrays, and a render of each build."""
+    Scene.build seconds, equal arrays, a render of each build, the
+    builder that Scene.build's default takes on this host (native where
+    g++ is found); on the tess-28 scene, the cluster scan (K2 + K1)
+    against the walk (K7) on the primary rays."""
+    import shutil
+
     import torch
 
     from myraytracer_tpu_torch.models.scene import ARRAY_FIELDS
@@ -1653,8 +1912,14 @@ def native_builder(dev, tesses=(10, 28), small=(480, 270)):
     t = time.perf_counter()
     native.build()
     print(f"native: g++ build {time.perf_counter() - t:.2f} s")
-    real = bvh.build_bvh
-    bvh_secs = []
+    gxx = shutil.which("g++")
+    check(native.available() and gxx is not None,
+          "native: no g++ on this host: Scene.build's default would build "
+          "with NumPy")
+    print(f"native: Scene.build's default builder on this host: native "
+          f"(g++ at {gxx})")
+    real, real_native = bvh.build_bvh, native.build_bvh_native
+    bvh_secs, native_calls = [], []
 
     def timed_build(*args, **kw):
         t0 = time.perf_counter()
@@ -1662,36 +1927,92 @@ def native_builder(dev, tesses=(10, 28), small=(480, 270)):
         bvh_secs.append(time.perf_counter() - t0)
         return out
 
-    bvh.build_bvh = timed_build
+    def counted(*args, **kw):
+        native_calls.append(1)
+        return real_native(*args, **kw)
+
+    bvh.build_bvh, native.build_bvh_native = timed_build, counted
     try:
         for tess in tesses:
             sc = scene_08_office(tess=tess, resolution=small)
             built = {}
-            for how in ("numpy", "native"):
+            for how, flag in (("numpy", False), ("native", True),
+                              ("default", None)):
                 bvh_secs.clear()
+                native_calls.clear()
                 t = time.perf_counter()
-                data = sc.build(device=dev, native=how == "native")
-                built[how] = (data, time.perf_counter() - t, bvh_secs[0])
+                data = sc.build(device=dev, native=flag)
+                built[how] = (data, time.perf_counter() - t, bvh_secs[0],
+                              len(native_calls))
             a, b = built["numpy"][0], built["native"][0]
+            check(built["numpy"][3] == 0 and built["native"][3] == 1
+                  and built["default"][3] == 1, f"native tess {tess}: the "
+                  f"native builder ran {built['numpy'][3]}, "
+                  f"{built['native'][3]}, {built['default'][3]} times for "
+                  f"NumPy, native, the default")
             check(a.n_tris == b.n_tris and a.n_nodes == b.n_nodes,
                   f"native tess {tess}: {b.n_tris} triangles, {b.n_nodes} "
                   f"nodes vs {a.n_tris}, {a.n_nodes}")
             differ = [f for f in ARRAY_FIELDS
                       if not torch.equal(getattr(a, f), getattr(b, f))]
+            default = built["default"][0]
+            check(all(torch.equal(getattr(default, f), getattr(b, f))
+                      for f in ARRAY_FIELDS), f"native tess {tess}: the "
+                  "default build differs from the native build")
             img_a, img_b = render(a, sc.camera), render(b, sc.camera)
             agree = float(((img_a - img_b).abs().amax(dim=-1) <= 1e-4)
                           .float().mean())
             print(f"native: office tess {tess} ({a.n_tris} triangles, "
-                  f"{a.n_nodes} nodes): BVH {built['numpy'][2]:.3f} s NumPy, "
-                  f"{built['native'][2]:.3f} s native; Scene.build "
+                  f"{a.n_nodes} nodes, {a.cl_first.shape[0]} clusters): BVH "
+                  f"{built['numpy'][2]:.3f} s NumPy, "
+                  f"{built['native'][2]:.3f} s native, "
+                  f"{built['default'][2]:.3f} s default; Scene.build "
                   f"{built['numpy'][1]:.3f} s NumPy, {built['native'][1]:.3f}"
-                  f" s native; arrays that differ: {differ or 'none'}; "
+                  f" s native, {built['default'][1]:.3f} s default (native);"
+                  f" arrays that differ: {differ or 'none'}; "
                   f"{small[0]}x{small[1]} render {agree:.6f} of pixels "
                   f"within 1e-4")
             check(agree >= GALLERY_AGREE, f"native tess {tess}: {agree} of "
                   "pixels within 1e-4 of the NumPy build's render")
+            if tess == max(tesses):
+                scan_vs_walk(default, sc.camera, tess)
     finally:
-        bvh.build_bvh = real
+        bvh.build_bvh, native.build_bvh_native = real, real_native
+
+
+def scan_vs_walk(data, camera, tess: int) -> None:
+    """Phase 21: the cluster scan (K2 + K1) against the walk (K7) on the
+    primary rays of a large scene (tests/test_torch_large_scene.py's
+    check on the card): hit masks and ids agree on >= ID_AGREE of the
+    rays, t within RTOL_T where the ids agree (K1 is built with FMA
+    contraction, K7 without)."""
+    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from myraytracer_tpu_torch.ops import cuda_cluster as cc
+    from myraytracer_tpu_torch.ops import traverse as trv
+    from myraytracer_tpu_torch.ops.render import primary_rays_blocked
+
+    o, d = primary_rays_blocked(camera, data.device)
+    reset_launches()
+    cl = cc.intersect_clusters(data, o, d)
+    walk = trv.traverse_bvh(data, o, d)
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    check(all(ran.get(k, 0) > 0 for k in ("phase1_exact",
+                                          "cluster_scan_closest",
+                                          "bvh_walk_closest")),
+          f"scan vs walk: launches {ran}")
+    hit = walk.idx >= 0
+    masks = float(((cl.idx >= 0) == hit).float().mean())
+    same = cl.idx == walk.idx
+    ids = float(same.float().mean())
+    t_rel = float(((cl.t - walk.t).abs() / walk.t.abs())[same & hit].max())
+    print(f"native: office tess {tess} {camera.width}x{camera.height} "
+          f"primary rays ({o.shape[0]} with the block padding): K2 + K1 vs "
+          f"K7 hit masks agree on {masks:.6f}, ids on {ids:.6f}, hits "
+          f"{float(hit.float().mean()):.4f}, t within {t_rel:.3g} relative "
+          f"where the ids agree; launches {ran}")
+    check(masks >= ID_AGREE and ids >= ID_AGREE, f"scan vs walk: masks "
+          f"{masks}, ids {ids}")
+    check(t_rel <= RTOL_T, f"scan vs walk: t off by {t_rel} relative")
 
 
 def inverse_demo():

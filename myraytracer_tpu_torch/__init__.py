@@ -14,7 +14,8 @@ Layout (module names follow the reference):
                multi-process initialisation, the sharded render, AA and
                training step, and the multi-process dryrun
                (python -m myraytracer_tpu_torch.parallel.dryrun)
-    runtime/   the native (C++) BVH builder, opt-in (native=True)
+    runtime/   the native (C++) BVH builder, the default where g++ is
+               found (native=False builds with NumPy)
     scenes/    procedural authoring of the ten golden scenes and the
                gallery entry point (python -m myraytracer_tpu_torch.scenes.golden)
     utils/     vector math, PNG reading and writing, runtime checks,

@@ -23,15 +23,17 @@ loss, every parameter's gradient and ``sum(w)``, and both are divided by
 epsilon). The optimizer state stays replicated, so every rank takes the
 same step; a checkpoint is written by mesh rank 0.
 
-Without a mesh, one step on a CUDA device is one CUDA graph
-(ops/graphs.py), as the reference jits its whole step with the optimizer
-update: merge, refit, rays, topology, shading, backward and
+One step on a CUDA device is one CUDA graph (ops/graphs.py), as the
+reference jits its whole step with the optimizer update: merge, refit,
+rays, topology, shading, backward, with a mesh the all-reduce, and
 ``optimizer.step()`` are captured once and replayed, reading the
 parameters and the optimizer state in place. The optimizer must be
 capturable (``adam()`` builds Adam with ``capturable=True`` for CUDA
 parameters); one that is not raises at the capture, and
-``graphs.disable_graphs()`` runs it eagerly. With a mesh every step runs
-eagerly: its collectives go through gloo or NCCL outside any graph.
+``graphs.disable_graphs()`` runs it eagerly. A mesh's group is in the
+key; over gloo (host-staged collectives, which no capture can hold) the
+step runs eagerly. Eager collectives between replays (the barrier of
+:meth:`InverseRenderer.save_checkpoint`) run on the same communicator.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.ops.refit import refit_accel
-from myraytracer_tpu_torch.parallel.mesh import mesh_rank
+from myraytracer_tpu_torch.parallel.mesh import all_reduce, mesh_rank
 from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
                                                          split_params)
 
@@ -108,7 +110,7 @@ class InverseRenderer:
             rays over its ranks and sums the gradients across them,
             which is the single-device fit up to fp32 rounding. Every
             rank of the mesh makes the same calls with the same data.
-            Sharded steps run eagerly (no CUDA graph).
+            Over gloo the steps run eagerly (no CUDA graph).
         camera: a models.camera.Camera. Attaching one exposes the
             ``cam_*`` leaves; use :meth:`fit_pixels` so the rays follow
             the current pose every step.
@@ -169,15 +171,14 @@ class InverseRenderer:
         return camera_with(self.camera, {k: v.detach()
                                          for k, v in self.params.items()})
 
-    def _step(self, a, b, target, w, pixel_mode: bool) -> torch.Tensor:
+    def _step(self, a, b, target, pixel_mode: bool) -> torch.Tensor:
         """One optimizer step on rays (a, b) = (o, d), or pixel
-        coordinates (xs, ys) in pixel mode, and with a mesh this rank's
-        share of them with its weights ``w``; returns the loss. Without a
-        mesh, one CUDA graph on the card (:func:`graphs.run`), keyed by
-        everything the step reads: the scene, the camera, the parameters,
-        the optimizer's state and settings, the rays and the target."""
-        if self.mesh is not None:
-            return self._step_body(a, b, target, w, pixel_mode)
+        coordinates (xs, ys) in pixel mode; returns the loss. One CUDA
+        graph on the card (:func:`graphs.run`), keyed by everything the
+        step reads: the scene, the camera, the parameters, the
+        optimizer's state and settings, the rays and the target (the
+        whole batch: a mesh's share is cut inside the graph) and the
+        mesh's group."""
         static, held = graphs.scene_inputs(self.base_scene)
         held += [a, b, target] + list(self.params.values())
         if self.camera is not None:
@@ -196,11 +197,14 @@ class InverseRenderer:
                   type(opt), settings)
         return graphs.run(
             "fit_step",
-            lambda: self._step_body(a, b, target, w, pixel_mode),
-            self.base_scene.device, static=static, held=held)
+            lambda: self._step_body(a, b, target, pixel_mode),
+            self.base_scene.device, static=static, held=held,
+            group=None if self.mesh is None else self.mesh.get_group())
 
-    def _step_body(self, a, b, target, w, pixel_mode: bool) -> torch.Tensor:
+    def _step_body(self, a, b, target, pixel_mode: bool) -> torch.Tensor:
         """The body of :meth:`_step`."""
+        if self.mesh is not None:
+            a, b, target, w = self._shard(a, b, target)
         p = self.params
         scene = merge_params(self.base_scene, _scene_leaves(p))
         if "vertex_pos" in self.param_names:
@@ -230,10 +234,9 @@ class InverseRenderer:
         ``all_reduce``; set each gradient to its sum over ``3 * sum(w)``
         and return the loss over the same."""
         params = list(self.params.values())
-        flat = torch.cat([loss.reshape(1), w.sum().reshape(1)] + [
+        flat = all_reduce(torch.cat([loss.reshape(1), w.sum().reshape(1)] + [
             (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-            for p in params])
-        dist.all_reduce(flat, group=self.mesh.get_group())
+            for p in params]), self.mesh)
         flat = flat / (3.0 * flat[1])
         off = 2
         for p in params:
@@ -262,12 +265,9 @@ class InverseRenderer:
              pixel_mode: bool = False) -> FitResult:
         dev = self.base_scene.device
         target = torch.as_tensor(target, dtype=torch.float32, device=dev)
-        w = None
-        if self.mesh is not None:
-            a, b, target, w = self._shard(a, b, target)
         losses = []
         for i in range(steps):
-            losses.append(float(self._step(a, b, target, w, pixel_mode)))
+            losses.append(float(self._step(a, b, target, pixel_mode)))
             self.step_count += 1
             if log_every and i % log_every == 0:
                 print(f"step {self.step_count}: loss={losses[-1]:.6f}")

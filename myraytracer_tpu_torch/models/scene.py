@@ -13,7 +13,7 @@ reference's packed arrays across unchanged.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -216,14 +216,15 @@ class Scene:
 
     # --- packing -----------------------------------------------------------
     def pack(self, leaf_size: int = 4, cluster_size: int = 128,
-             builder: str = "sah", native: bool = False
+             builder: str = "sah", native: Optional[bool] = None
              ) -> Tuple[Dict[str, np.ndarray], dict]:
         """Pack the scene into NumPy arrays: (arrays, static fields).
 
         ``leaf_size`` bounds BVH leaf occupancy, ``cluster_size`` sets
         the cluster width M, ``builder`` picks the BVH split rule ("sah"
-        or "median"), ``native`` builds the BVH with the C++ builder
-        (ops/bvh.build_bvh) instead of NumPy.
+        or "median"), ``native`` the BVH builder (ops/bvh.build_bvh): the
+        C++ builder where ``g++`` is found (None, the default) or always
+        (True), NumPy for False.
         """
         materials: List[Material] = []
         mat_index: dict = {}
@@ -427,7 +428,8 @@ class Scene:
         return arrays, static
 
     def build(self, device="cuda", leaf_size: int = 4, cluster_size: int = 128,
-              builder: str = "sah", native: bool = False) -> SceneData:
+              builder: str = "sah", native: Optional[bool] = None
+              ) -> SceneData:
         """Pack the scene (:meth:`pack`) into a SceneData on ``device``.
 
         The default is the GPU; without one this raises, and a caller who

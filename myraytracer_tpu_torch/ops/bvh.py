@@ -5,16 +5,18 @@ median or 16-bin SAH splits, triangles physically reordered so every
 leaf owns a contiguous range, and per-octant entry/skip links. The
 cluster cut (ops/cluster.py) reads the leaf order.
 
-``build_bvh(native=True)`` builds the same tree with the C++ builder of
-``runtime/`` (runtime/native.py), and raises when it cannot be built.
-It is opt-in: its median builds equal this builder's array for array,
-but its SAH builds can order ties differently on symmetric meshes, so
-the NumPy builder stays the default.
+``build_bvh`` builds the same tree with the C++ builder of ``runtime/``
+(runtime/native.py) by default where ``g++`` is found, as the reference
+builds natively by default; ``native=False`` is the opt-out (the
+reference's ``MRT_NO_NATIVE=1``) and ``native=True`` requires it. A
+native build that fails raises: there is no fallback to NumPy. Both
+builders give the same arrays, bit for bit (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -57,7 +59,7 @@ def build_bvh(
     v2: np.ndarray,
     leaf_size: int = MAX_LEAF,
     builder: str = "median",
-    native: bool = False,
+    native: Optional[bool] = None,
 ) -> BVHArrays:
     """Build a BVH over triangles given by vertex positions.
 
@@ -69,8 +71,10 @@ def build_bvh(
             (16-bin binned surface-area heuristic — typically 1.5-2x
             fewer node visits and tighter cluster bounds; falls back to
             median when a node's SAH finds no improving split).
-        native: build with the C++ builder (runtime/native.py); raises
-            when it cannot be built.
+        native: build with the C++ builder (runtime/native.py): None
+            where ``g++`` is found (runtime/native.available), True
+            always; either raises when the builder cannot be built or
+            loaded. False builds with NumPy.
     Returns:
         BVHArrays with triangles permuted into leaf-contiguous order via
         ``order`` (new index i holds old triangle order[i]).
@@ -81,10 +85,10 @@ def build_bvh(
     T = v0.shape[0]
     if T == 0:
         raise ValueError("build_bvh: no triangles")
-    if native:
-        from myraytracer_tpu_torch.runtime.native import build_bvh_native
+    from myraytracer_tpu_torch.runtime import native as native_builder
 
-        return build_bvh_native(v0, v1, v2, leaf_size, builder)
+    if native or (native is None and native_builder.available()):
+        return native_builder.build_bvh_native(v0, v1, v2, leaf_size, builder)
 
     centroid = (v0 + v1 + v2) / 3.0
     tri_min = np.minimum(np.minimum(v0, v1), v2)

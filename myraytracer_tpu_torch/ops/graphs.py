@@ -40,10 +40,26 @@ conditional segment under a CUDA-graph IF node (:func:`if_node`):
             path.
   size      at most :data:`MAX_GRAPHS` keys; the least recently used is
             evicted first and its graph and memory pool released.
+  group     a sharded entry point (parallel/) passes its mesh's process
+            group: the key holds the backend, this rank's index, the
+            group's size and the group object itself (a new group over
+            the same ranks never replays a graph made with the old
+            communicator; a name could repeat after
+            ``dist.destroy_process_group``). Only NCCL collectives can be
+            captured: a group of any other backend (gloo stages CUDA
+            tensors through the host) runs eagerly, by rule, decided
+            before the call (:func:`runs_eagerly`). Call :func:`clear`
+            before a captured group is destroyed. Every rank makes the
+            same calls in the same order, so every rank warms up,
+            captures and evicts the same keys at the same call. No
+            collective may run inside an IF node's body (a rank that
+            skips the body would hang the others): the port's one
+            all-reduce raises there (:func:`if_body_site`).
 
 :func:`disable_graphs` runs every entry point eagerly, the counterpart of
-``jax.disable_jit()``; it is the only eager switch for CUDA tensors.
-Tensors on the CPU always run eagerly. A capture that fails raises
+``jax.disable_jit()``; it is the only eager switch for CUDA tensors
+apart from the backend rule above. Tensors on the CPU always run
+eagerly. A capture that fails raises
 :class:`GraphCaptureError`, naming the entry point and the line that
 failed; no call is retried eagerly.
 """
@@ -58,6 +74,7 @@ import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from myraytracer_tpu_torch.kernels import _build
 
@@ -121,6 +138,9 @@ _RECORDING: Optional[_Recording] = None
 #: keys replayed since :func:`count_bodies` last ran, whose graphs hold
 #: IF nodes
 _UNCOUNTED: Dict[int, _Entry] = {}
+#: the sites of the IF nodes whose bodies are being recorded, innermost
+#: last
+_BODY_SITES: List[str] = []
 _disabled = 0
 
 
@@ -186,30 +206,44 @@ def scene_inputs(scene) -> tuple:
 
 
 def make_key(name: str, static, held: Sequence[torch.Tensor],
-             staged: Sequence[torch.Tensor]) -> tuple:
-    """The cache key of a call of :func:`run` (see the module docstring)."""
+             staged: Sequence[torch.Tensor], group=None) -> tuple:
+    """The cache key of a call of :func:`run` (see the module docstring);
+    of a process group it records the backend, this rank's index, the
+    size and the group object."""
     return (name, static, tuple(tensor_key(t) for t in held),
-            tuple((tuple(s.shape), s.dtype) for s in staged))
+            tuple((tuple(s.shape), s.dtype) for s in staged),
+            None if group is None else (
+                dist.get_backend(group), dist.get_rank(group),
+                dist.get_world_size(group), group))
+
+
+def runs_eagerly(device, group=None) -> bool:
+    """Does :func:`run` call its region eagerly? On the CPU, inside
+    :func:`disable_graphs`, and for a process group whose backend is not
+    NCCL (its collectives cannot be captured)."""
+    return (torch.device(device).type != "cuda" or _disabled > 0
+            or (group is not None and dist.get_backend(group) != "nccl"))
 
 
 def run(name: str, fn: Callable, device, static=(),
         held: Sequence[torch.Tensor] = (),
-        staged: Sequence[torch.Tensor] = ()):
+        staged: Sequence[torch.Tensor] = (), group=None):
     """``fn(*staged)`` on ``device``, replayed from a CUDA graph.
 
     ``fn`` reads the tensors of ``held`` in place (it closes over them)
     and the ``staged`` inputs through its arguments, and returns a
     tensor or a tuple, list or dict of tensors (None and numbers pass
-    through). ``static`` is the hashable rest of the key. On the CPU and
-    inside :func:`disable_graphs`, ``fn`` runs eagerly with the staged
+    through). ``static`` is the hashable rest of the key; ``group`` the
+    process group of the collectives ``fn`` makes, if any. Where
+    :func:`runs_eagerly` holds, ``fn`` runs eagerly with the staged
     inputs moved to ``device``.
     """
     device = torch.device(device)
-    if device.type != "cuda" or _disabled:
+    if runs_eagerly(device, group):
         return fn(*(s.to(device) for s in staged))
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = make_key(name, static, held, staged)
+    key = make_key(name, static, held, staged, group)
     entry = _CACHE.get(key)
     if entry is None:
         entry = _Entry(held=tuple(held), staged=tuple(
@@ -225,7 +259,7 @@ def run(name: str, fn: Callable, device, static=(),
     _CACHE.move_to_end(key)
     _stage(entry, staged)
     if entry.graph is None:
-        _capture(name, fn, entry, device)
+        _capture(name, fn, entry, device, group is not None)
         COUNTS["captures"] += 1
     entry.graph.replay()
     COUNTS["replays"] += 1
@@ -315,17 +349,22 @@ def _failure_site(exc: BaseException) -> str:
     return f"{at}: {type(exc).__name__}: {exc}"
 
 
-def _capture(name: str, fn: Callable, entry: _Entry,
-             device: torch.device) -> None:
+def _capture(name: str, fn: Callable, entry: _Entry, device: torch.device,
+             collective: bool = False) -> None:
     """Capture ``fn`` into the entry's graph; the launches its kernel
     wrappers count during the capture outside IF nodes become the count
-    of one replay, those inside each node its body's count."""
+    of one replay, those inside each node its body's count. A region with
+    a ``collective`` is captured in the thread-local mode: the process
+    group's watchdog thread queries the events of eager collectives (a
+    warm-up's all-reduce, a checkpoint's barrier), which under the global
+    mode could invalidate the capture from that thread."""
     global _RECORDING
     before = dict(_build.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
     rec = _RECORDING = _Recording(device)
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=(
+                "thread_local" if collective else "global")):
             out = fn(*entry.staged)
     except Exception as e:
         if rec.pool is not None:
@@ -344,6 +383,23 @@ def _capture(name: str, fn: Callable, entry: _Entry,
     entry.launches = {k: v for k, v in counted.items() if v}
     entry.bodies, entry.body_pool = rec.bodies, rec.pool
     COUNTS["if_nodes"] += len(rec.bodies)
+
+
+def if_body_site() -> Optional[str]:
+    """The site of the IF node whose body is being recorded (the
+    innermost), or None outside every body."""
+    return _BODY_SITES[-1] if _BODY_SITES else None
+
+
+@contextlib.contextmanager
+def recording_body(site: str):
+    """Marks the block as the body of the IF node ``site``
+    (:func:`if_node` records each body inside it)."""
+    _BODY_SITES.append(site)
+    try:
+        yield
+    finally:
+        _BODY_SITES.pop()
 
 
 def capturing(device) -> bool:
@@ -399,7 +455,7 @@ def if_node(pred: torch.Tensor, body: Callable[[], Any], site: str) -> None:
     try:
         torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, pool)
         try:
-            with torch.cuda.stream(body_stream):
+            with torch.cuda.stream(body_stream), recording_body(site):
                 body()
         finally:
             torch._C._cuda_endAllocateToPool(device.index, pool)

@@ -113,11 +113,12 @@ def primary_rays_blocked(camera: Camera, device, block: int = BLOCK):
 
 
 def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
-             staged=()):
+             staged=(), group=None):
     """``fn(camera, *staged)`` through :func:`graphs.run`: the scene's
     tensors and ``held`` read in place, the camera (packed) and
     ``staged`` copied into the graph's buffers, keyed by the scene's
-    static fields, the camera's size and ``static``."""
+    static fields, the camera's size, ``static`` and the process
+    ``group`` of a sharded entry point."""
     W, H = camera.width, camera.height
     scene_static, scene_held = graphs.scene_inputs(scene)
 
@@ -127,7 +128,7 @@ def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
     return graphs.run(name, body, scene.device,
                       static=(scene_static, W, H) + tuple(static),
                       held=scene_held + list(held),
-                      staged=(camera.packed(),) + tuple(staged))
+                      staged=(camera.packed(),) + tuple(staged), group=group)
 
 
 def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),

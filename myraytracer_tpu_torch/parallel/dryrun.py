@@ -164,12 +164,41 @@ def suite_case(scene: str = "toy", scene_kw: Optional[dict] = None,
         fit_steps=fit_steps)
 
 
+def step_batch(camera, target_img: torch.Tensor, mesh=None):
+    """The training step's batch (render_loss_grad_image's): (o, d,
+    target, w), every pixel in screen-block order, the padded pixels
+    weighted 0; with ``mesh``, padded to it with copies of the last ray,
+    weighted 0, and cut to this rank's share."""
+    from myraytracer_tpu_torch.ops.render import (BLOCK, _to_blocks,
+                                                  primary_rays_blocked)
+    from myraytracer_tpu_torch.parallel import shard_render as sr
+    from myraytracer_tpu_torch.parallel.distributed import shard_rays_global
+
+    H, W = camera.height, camera.width
+    o, d = primary_rays_blocked(camera, target_img.device, BLOCK)
+    Hp, Wp = -(-H // BLOCK) * BLOCK, -(-W // BLOCK) * BLOCK
+    F = torch.nn.functional
+    tgt = _to_blocks(F.pad(target_img, (0, 0, 0, Wp - W, 0, Hp - H)), BLOCK)
+    w = _to_blocks(F.pad(torch.ones((H, W), device=o.device),
+                         (0, Wp - W, 0, Hp - H)), BLOCK)
+    if mesh is None:
+        return o, d, tgt, w
+    o_p, d_p, _ = sr._pad_rays(o, d, mesh.size())
+    pad = o_p.shape[0] - o.shape[0]
+    return shard_rays_global(mesh, o_p, d_p, F.pad(tgt, (0, 0, 0, pad)),
+                             F.pad(w, (0, pad)))
+
+
 def run_suite(case: SuiteCase, mesh=None, reps: int = 1) -> dict:
     """The render, render_aa, one SGD training step and a fit of
     ``case``, sharded over ``mesh``, or on one device when it is None.
 
-    Each part runs ``reps`` times; the result and the wall seconds and
-    kernel launches are those of the last run. Returns CPU tensors:
+    Each part runs ``reps`` times; the result, the wall seconds, the
+    kernel launches and ``graph_calls`` (what :data:`graphs.COUNTS`
+    moved by: the CUDA graphs warmed up, captured and replayed) are
+    those of the last run. On the card from the third run on each part
+    replays a captured graph (over NCCL; gloo runs eagerly), the fit's
+    steps from its third. Returns CPU tensors:
     ``img``, ``img_aa`` [H, W, 3]; ``loss`` (the step's mean squared
     error), ``params`` (the parameters after the step); ``grads`` (the
     summed SSE gradients of the step's batch, from one more untimed
@@ -177,34 +206,19 @@ def run_suite(case: SuiteCase, mesh=None, reps: int = 1) -> dict:
     ``fit_params``; ``seconds`` and ``launches`` per part.
     """
     from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
-    from myraytracer_tpu_torch.ops.render import (BLOCK, _loss_grad_tiled,
-                                                  _to_blocks,
-                                                  primary_rays_blocked,
-                                                  render, render_aa,
+    from myraytracer_tpu_torch.ops import graphs
+    from myraytracer_tpu_torch.ops.render import (_loss_grad_tiled, render,
+                                                  render_aa,
                                                   restore_mirror_chain)
     from myraytracer_tpu_torch.parallel import shard_render as sr
-    from myraytracer_tpu_torch.parallel.distributed import (replicate_global,
-                                                            shard_rays_global)
+    from myraytracer_tpu_torch.parallel.distributed import replicate_global
 
     scene, cam = case.scene, case.camera
     if mesh is not None:
         scene = replicate_global(mesh, scene)
-    H, W = cam.height, cam.width
-    # the training step's batch: every pixel in screen-block order, the
-    # padded pixels weighted 0 (render_loss_grad_image's batch)
-    o, d = primary_rays_blocked(cam, scene.device, BLOCK)
-    Hp, Wp = -(-H // BLOCK) * BLOCK, -(-W // BLOCK) * BLOCK
-    F = torch.nn.functional
-    tgt = _to_blocks(F.pad(case.target_img, (0, 0, 0, Wp - W, 0, Hp - H)),
-                     BLOCK)
-    w = _to_blocks(F.pad(torch.ones((H, W), device=o.device),
-                         (0, Wp - W, 0, Hp - H)), BLOCK)
+    o, d, tgt, w = step_batch(cam, case.target_img)
     if mesh is not None:
-        # padded to the mesh with copies of the last ray, weighted 0
-        o_p, d_p, _ = sr._pad_rays(o, d, mesh.size())
-        pad = o_p.shape[0] - o.shape[0]
-        o_s, d_s, t_s, w_s = shard_rays_global(
-            mesh, o_p, d_p, F.pad(tgt, (0, 0, 0, pad)), F.pad(w, (0, pad)))
+        o_s, d_s, t_s, w_s = step_batch(cam, case.target_img, mesh)
 
     def loss_grad(sc):
         """(summed SSE loss, its gradients, 3 x summed weights)."""
@@ -235,18 +249,22 @@ def run_suite(case: SuiteCase, mesh=None, reps: int = 1) -> dict:
         "train_step": step,
         "fit": lambda: fit(case, mesh),
     }
-    out: Dict[str, object] = {"seconds": {}, "launches": {}}
+    out: Dict[str, object] = {"seconds": {}, "launches": {},
+                              "graph_calls": {}}
     sync = (torch.cuda.synchronize if scene.device.type == "cuda"
             else lambda: None)
     for name, fn in parts.items():
         for _ in range(reps):
             sync()
             reset_launches()
+            before = dict(graphs.COUNTS)
             t = time.perf_counter()
             res = fn()
             sync()
             out["seconds"][name] = time.perf_counter() - t
             out["launches"][name] = dict(LAUNCHES)
+            out["graph_calls"][name] = {k: graphs.COUNTS[k] - before[k]
+                                        for k in before}
         out[name] = res
     cpu = _to_cpu
     loss, params = out.pop("train_step")
@@ -402,6 +420,7 @@ def _join(procs, deadline_s: float, tmp: str) -> None:
 
 
 def _child(tmp: str, rank: int) -> None:
+    from myraytracer_tpu_torch.ops import graphs
     from myraytracer_tpu_torch.parallel.distributed import (
         global_ray_mesh, initialize_from_env)
 
@@ -415,6 +434,8 @@ def _child(tmp: str, rank: int) -> None:
         out = TASKS[spec["task"]](rank, mesh, **spec["args"])
         torch.save(out, Path(tmp, f"rank{rank}.pt"))
     finally:
+        # a captured graph holds its group's communicator: drop it first
+        graphs.clear()
         dist.destroy_process_group()
 
 

@@ -14,7 +14,8 @@ global rank when LOCAL_RANK is unset), or the CPU when the caller asks
 for ``device="cpu"``. Collectives run on plain tensors through the
 mesh's process group: the kernels are ctypes launches, which DTensor
 cannot dispatch, so :func:`ray_sharding` and :func:`replicated` are
-descriptors only.
+descriptors only. Every collective of the sharded entry points is one
+:func:`all_reduce`.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Placement, Replicate, Shard
+
+from myraytracer_tpu_torch.ops import graphs
 
 #: the single mesh axis rays are split over
 RAY_AXIS = "rays"
@@ -104,6 +107,24 @@ def mesh_rank(mesh: DeviceMesh) -> int:
     if coord is None:
         raise ValueError(f"rank {dist.get_rank()} is not in the ray mesh")
     return coord[0]
+
+
+def all_reduce(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Sum ``t`` in place over the ranks of ``mesh``; returns it.
+
+    Captured into a sharded entry point's CUDA graph on NCCL
+    (ops/graphs.py). Raises :class:`graphs.GraphCaptureError` while an IF
+    node's body is being recorded: the body runs or not by a value that
+    each rank holds for itself, and a rank that skipped it would leave
+    the others waiting in the collective.
+    """
+    site = graphs.if_body_site()
+    if site is not None:
+        raise graphs.GraphCaptureError(
+            f"{site}: a collective inside an IF node's body would hang the "
+            f"ranks that skip it; all_reduce belongs after the trace")
+    dist.all_reduce(t, group=mesh.get_group())
+    return t
 
 
 def ray_sharding(mesh: DeviceMesh) -> List[Placement]:

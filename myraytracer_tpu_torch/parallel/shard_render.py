@@ -17,6 +17,16 @@ Scene parameters are a flat dict of tensors (:func:`split_params`,
 :func:`merge_params`): the float tensor fields of a SceneData minus the
 acceleration structure (``bvh_``/``cl_`` prefixes), whose bounds are
 traversal topology and get no gradient.
+
+On the card over NCCL each entry point replays CUDA graphs
+(ops/graphs.py), the counterpart of the reference's jitted programs:
+``render_sharded`` is one graph (rays, this rank's share, the trace, the
+assembly), ``render_aa_sharded`` adds one for the refine, and a training
+step is one graph of the forward, the backward, the all-reduce and the
+update. Each key holds the mesh's process group. Over gloo, whose
+collectives stage CUDA tensors through the host, every call runs
+eagerly. The all-reduces come after the trace, never inside an IF
+node's body (parallel/mesh.all_reduce raises there).
 """
 
 from __future__ import annotations
@@ -25,11 +35,11 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from myraytracer_tpu_torch.models.scene import ARRAY_FIELDS, SceneData
+from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import tracer as tr
-from myraytracer_tpu_torch.parallel.mesh import mesh_rank
+from myraytracer_tpu_torch.parallel.mesh import all_reduce, mesh_rank
 
 #: acceleration-structure arrays: not scene parameters
 _ACCEL_PREFIXES = ("bvh_", "cl_")
@@ -69,8 +79,7 @@ def _gather_rows(part: torch.Tensor, mesh) -> torch.Tensor:
     rank, n = mesh_rank(mesh), part.shape[0]
     full = part.new_zeros((mesh.size() * n,) + tuple(part.shape[1:]))
     full[rank * n:(rank + 1) * n] = part
-    dist.all_reduce(full, group=mesh.get_group())
-    return full
+    return all_reduce(full, mesh)
 
 
 def _trace_shard(scene, o, d, mesh, cfg: tr.TraceConfig,
@@ -96,8 +105,19 @@ def render_sharded(scene, camera, mesh,
     under :func:`ops.render.render`'s tile rule (``tile`` rays, rounded
     down to whole blocks; None traces the rank's share in one batch). At
     mesh size 1 the image equals ``render``'s bit for bit. Every rank
-    returns the whole image, clamped to <= 1.
+    returns the whole image, clamped to <= 1. One CUDA graph on the card
+    over NCCL, with the camera staged.
     """
+    from myraytracer_tpu_torch.ops.render import _graphed
+
+    return _graphed("render_sharded",
+                    lambda cam: _render_sharded(scene, cam, mesh, cfg, tile),
+                    scene, camera, static=(cfg, tile), group=mesh.get_group())
+
+
+def _render_sharded(scene, camera, mesh, cfg: tr.TraceConfig,
+                    tile: Optional[int]) -> torch.Tensor:
+    """The body of :func:`render_sharded`."""
     from myraytracer_tpu_torch.ops.render import BLOCK, primary_rays_blocked
 
     H, W = camera.height, camera.width
@@ -127,13 +147,30 @@ def render_aa_sharded(scene, camera, mesh,
     (``ops/render._aa_rays``); only the subpixel rays, padded to a
     multiple of mesh size x subp^2, are split over the mesh, and traced
     with the exact phase-1 as ``render_aa`` traces them. At mesh size 1
-    the image equals ``render_aa``'s bit for bit.
+    the image equals ``render_aa``'s bit for bit. Two CUDA graphs on the
+    card over NCCL, as the reference's programs: pass 1
+    (:func:`render_sharded`'s) and the refine, with the camera and the
+    pass-1 image staged.
     """
     from myraytracer_tpu_torch.ops import render as R
 
     subp = R.AA_SUBP if subp is None else subp
     threshold = R.AA_THRESHOLD if threshold is None else threshold
     img1 = render_sharded(scene, camera, mesh, cfg, tile)
+    return R._graphed(
+        "aa_refine_sharded",
+        lambda cam, img: _aa_refine_sharded(scene, cam, img, mesh, cfg, tile,
+                                            subp, threshold, budget_frac),
+        scene, camera, static=(cfg, tile, subp, threshold, budget_frac),
+        staged=(img1,), group=mesh.get_group())
+
+
+def _aa_refine_sharded(scene, camera, img1, mesh, cfg: tr.TraceConfig,
+                       tile: Optional[int], subp: int, threshold: float,
+                       budget_frac: float) -> torch.Tensor:
+    """The refine of :func:`render_aa_sharded`."""
+    from myraytracer_tpu_torch.ops import render as R
+
     top_idx, sel, o, d = R._aa_rays(camera, img1, subp, threshold,
                                     budget_frac)
     o, d, Rr = _pad_rays(o, d, mesh.size() * subp * subp)
@@ -162,9 +199,9 @@ def loss_grad_sharded(scene, o, d, target, w, mesh,
     loss, grads = _loss_grad_tiled(scene, o, d, target, w, cfg,
                                    o.shape[0] if tile is None else tile)
     names = list(grads)
-    flat = torch.cat([loss.reshape(1), w.sum().reshape(1).to(loss.dtype)]
-                     + [grads[k].reshape(-1) for k in names])
-    dist.all_reduce(flat, group=mesh.get_group())
+    flat = all_reduce(torch.cat(
+        [loss.reshape(1), w.sum().reshape(1).to(loss.dtype)]
+        + [grads[k].reshape(-1) for k in names]), mesh)
     out, off = {}, 2
     for k in names:
         n = grads[k].numel()
@@ -183,17 +220,39 @@ def make_train_step(mesh, cfg: tr.TraceConfig = tr.TraceConfig(),
     squared error over the weighted channels of every rank, and every
     rank applies the same update ``p - lr * g / n_total`` with
     ``n_total = 3 * sum(w)`` over the mesh. A scene whose mirrors are
-    above 0 traces its full mirror chain (``ops/render.restore_mirror_chain``).
+    above 0 traces its full mirror chain (``ops/render.restore_mirror_chain``:
+    it reads the host, so it runs before the graph, and its
+    ``live_depth`` is in the key).
+
+    On the card over NCCL a step is one CUDA graph of
+    :func:`loss_grad_sharded` and the update. It reads the scene's
+    acceleration and integer arrays, o, d, target and w in place; the
+    scene's float leaves (:func:`split_params`) are staged, copied into
+    the graph's buffers, so the new leaves of ``scene'`` replay the same
+    graph in the next step.
     """
     from myraytracer_tpu_torch.ops.render import restore_mirror_chain
 
     def step(scene, o, d, target, w):
         scene = restore_mirror_chain(scene)
-        loss, grads, n_total = loss_grad_sharded(scene, o, d, target, w,
-                                                 mesh, cfg, tile)
         params = split_params(scene)
-        new = {k: p - lr * grads[k] / n_total for k, p in params.items()}
-        return merge_params(scene, new), loss / n_total
+        names = tuple(params)
+        static, _ = graphs.scene_inputs(scene)
+        held = [getattr(scene, f) for f in ARRAY_FIELDS if f not in params]
+
+        def body(*leaves):
+            loss, grads, n_total = loss_grad_sharded(
+                merge_params(scene, dict(zip(names, leaves))), o, d, target,
+                w, mesh, cfg, tile)
+            return ({k: p - lr * grads[k] / n_total
+                     for k, p in zip(names, leaves)}, loss / n_total)
+
+        new, loss = graphs.run(
+            "train_step_sharded", body, scene.device,
+            static=(static, names, cfg, lr, tile),
+            held=held + [o, d, target, w],
+            staged=[params[k] for k in names], group=mesh.get_group())
+        return merge_params(scene, new), loss
 
     return step
 

@@ -2,11 +2,11 @@
 //
 // A copy of the JAX package's runtime/bvh_builder.cpp, unchanged below
 // this comment. The NumPy builder in ops/bvh.py is the semantic
-// reference; this is its opt-in fast path for large scenes
-// (build_bvh(native=True), Scene.build(native=True)), loaded through
-// ctypes by runtime/native.py. Median builds produce arrays identical to
-// the NumPy builder's; binned-SAH builds can order ties differently on
-// symmetric meshes (tests/test_torch_native.py).
+// reference; this is the default builder of build_bvh and Scene.build
+// where g++ is found (native=False opts out), loaded through ctypes by
+// runtime/native.py. Built without FMA contraction, its median and
+// binned-SAH builds produce arrays identical to the NumPy builder's
+// (tests/test_torch_native.py).
 //
 // Algorithm parity with ops/bvh.py build_bvh():
 //   * split axis cycles with depth (axis = depth % 3)

@@ -11,9 +11,10 @@ hash of the source and the flags, through a temporary file and
 no ``-march=native`` and no FMA contraction, so a build on any x86 host
 gives the NumPy builder's bits.
 
-The builder is opt-in (``ops/bvh.build_bvh(native=True)``,
-``Scene.build(native=True)``), and it never falls back: without a
-compiler, or when the build fails, :func:`library` raises.
+It is the default builder of ``ops/bvh.build_bvh`` and ``Scene.build``
+where :func:`available` finds ``g++``; ``native=False`` opts out,
+``native=True`` requires it. It never falls back to NumPy: when the
+build or the load fails, :func:`library` raises.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 _lib = None
+
+
+def available() -> bool:
+    """Is there a compiler to build the library with (``g++`` on PATH)?
+    The default builder of ``build_bvh`` follows it."""
+    return shutil.which("g++") is not None
 
 
 def library_path() -> Path:

@@ -107,13 +107,13 @@ def regions(monkeypatch):
     names = []
     run = graphs.run
 
-    def watched(name, fn, device, static=(), held=(), staged=()):
+    def watched(name, fn, device, static=(), held=(), staged=(), group=None):
         names.append(name)
 
         def body(*a):
             with NoHostRead():
                 return fn(*a)
-        return run(name, body, device, static, held, staged)
+        return run(name, body, device, static, held, staged, group)
 
     monkeypatch.setattr(graphs, "run", watched)
     return names
@@ -275,8 +275,8 @@ def keys(monkeypatch):
     """Records the key of every graphs.run call instead of running it."""
     got = []
 
-    def record(name, fn, device, static=(), held=(), staged=()):
-        got.append(graphs.make_key(name, static, held, staged))
+    def record(name, fn, device, static=(), held=(), staged=(), group=None):
+        got.append(graphs.make_key(name, static, held, staged, group))
 
     monkeypatch.setattr(graphs, "run", record)
     return got
@@ -365,12 +365,12 @@ def test_cache_key_of_the_refine_and_the_fit_step(keys):
     inv = InverseRenderer(data, param_names=("mat_diffuse",))
     o, d = prender.primary_rays_blocked(cam, "cpu")
     tgt = torch.zeros_like(o)
-    step = _key(keys, lambda: inv._step(o, d, tgt, None, False))
+    step = _key(keys, lambda: inv._step(o, d, tgt, False))
     with torch.no_grad():
         inv.params["mat_diffuse"].mul_(0.9)
-    assert _key(keys, lambda: inv._step(o, d, tgt, None, False)) == step
+    assert _key(keys, lambda: inv._step(o, d, tgt, False)) == step
     inv.optimizer.param_groups[0]["lr"] = 0.5
-    assert _key(keys, lambda: inv._step(o, d, tgt, None, False)) != step
+    assert _key(keys, lambda: inv._step(o, d, tgt, False)) != step
 
 
 # --- (d), (e) ----------------------------------------------------------------

@@ -972,3 +972,114 @@ def test_if_node_skips_and_runs_by_the_condition(cuda):
     assert (got == -1.0).all() and graphs.count_bodies() == (0, 1)
     w.fill_(1.0)
     assert torch.equal(graphs.run("cond", region, cuda, held=[w, out]), want)
+
+
+# --- the sharded entry points over NCCL at world size 1 (parallel/) ---------
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL ray mesh in this process; the graphs that hold its
+    communicator are dropped before the group is destroyed."""
+    import torch.distributed as dist
+
+    from myraytracer_tpu_torch.parallel.mesh import make_mesh
+
+    graphs.clear()
+    mesh = make_mesh(1, "cuda")
+    assert dist.get_backend(mesh.get_group()) == "nccl"
+    yield mesh
+    graphs.clear()
+    dist.destroy_process_group()
+
+
+def _step_params_close(got, want, grads, n_total, lr, rel=5e-4):
+    """The SGD step's parameters within lr / n_total x rel x max|g| plus
+    one ulp: the gradient bar carried through p - lr g / n_total."""
+    from myraytracer_tpu_torch.parallel.shard_render import split_params
+
+    a_p, b_p = split_params(got), split_params(want)
+    for k, b in b_p.items():
+        if b.numel():
+            bar = lr / n_total * rel * max(float(grads[k].abs().max()), 1e-30)
+            ulp = (torch.nextafter(b, torch.full_like(b, np.inf)) - b).abs()
+            excess = float(((a_p[k] - b).abs() - ulp).clamp(min=0).max())
+            assert excess <= bar, (k, excess, bar)
+
+
+@pytest.mark.parametrize("entry", ["render", "render_aa", "step", "fit"])
+def test_sharded_graphed_equals_eager_over_nccl(nccl_mesh, entry):
+    """World size 1 over NCCL: from the third call each sharded entry
+    point replays a captured graph, launches what its eager call launches
+    and agrees with it (images bit-equal, and equal to the single
+    device's; the step's loss within rtol 1e-6 and its parameters within
+    the gradient bar 5e-4 x max|g| carried through the update; the fit's
+    losses within rtol 1e-5, its third step a capture)."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+    from myraytracer_tpu_torch.parallel import dryrun
+    from myraytracer_tpu_torch.parallel import shard_render as sr
+
+    mesh = nccl_mesh
+    dev = torch.device("cuda", 0)
+    data, cam = _graph_office(dev)
+    tgt = 0.9 * render(data, cam) + 0.02
+    if entry == "fit":
+        xs, ys = (g.reshape(-1) for g in cam.pixel_grid(dev))
+
+        def fit():
+            inv = InverseRenderer(data, ("mat_diffuse", "light_color"),
+                                  optimizer=adam(0.02), camera=cam,
+                                  mesh=mesh)
+            return [inv.fit_pixels(xs, ys, tgt.reshape(-1, 3),
+                                   steps=1).losses[0] for _ in range(4)]
+
+        want, _ = _eager(fit)
+        before = dict(graphs.COUNTS)
+        got = fit()
+        moved = {k: graphs.COUNTS[k] - before[k] for k in before}
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        assert (moved["warm_ups"], moved["captures"], moved["replays"]) == (
+            2, 1, 2)
+        return
+    batch = dryrun.step_batch(cam, tgt, mesh)
+    step = sr.make_train_step(mesh, lr=0.5)
+    fn = {"render": lambda: sr.render_sharded(data, cam, mesh),
+          "render_aa": lambda: sr.render_aa_sharded(data, cam, mesh,
+                                                    budget_frac=0.05),
+          "step": lambda: step(data, *batch)}[entry]
+    want, l_eager = _eager(fn)
+    got, l_graph, moved = _three_calls(fn)
+    assert moved["replays"] >= 1 and moved["captures"] == 0
+    assert moved["warm_ups"] == 0 and l_graph == l_eager
+    if entry == "step":
+        with graphs.disable_graphs():
+            _, grads, n_total = sr.loss_grad_sharded(data, *batch, mesh)
+        np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
+        _step_params_close(got[0], want[0], grads, float(n_total), 0.5)
+        return
+    assert torch.equal(got, want)
+    single = (render(data, cam) if entry == "render"
+              else render_aa(data, cam, budget_frac=0.05))
+    assert torch.equal(got, single)
+
+
+def test_collective_inside_an_if_node_fails_the_capture(nccl_mesh):
+    """The one all-reduce refuses to be recorded in an IF node's body (a
+    rank that skipped the body would hang the others): the capture
+    raises, naming the body."""
+    from myraytracer_tpu_torch.parallel.mesh import all_reduce
+
+    dev = torch.device("cuda", 0)
+    t = torch.ones(8, device=dev)
+
+    def region():
+        out = t * 2.0
+        if graphs.capturing(dev):
+            graphs.if_node((out > 0).any(), lambda: all_reduce(out, nccl_mesh),
+                           "a body with a collective")
+        return out
+
+    group = nccl_mesh.get_group()
+    graphs.run("guarded", region, dev, held=[t], group=group)
+    with pytest.raises(graphs.GraphCaptureError,
+                       match="a collective inside an IF node's body"):
+        graphs.run("guarded", region, dev, held=[t], group=group)
