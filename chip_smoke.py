@@ -165,6 +165,27 @@ scan's kernels were not.
      that fail on a mirror, must be the same graphed as eager); o_04's
      step's max_memory_reserved eager and graphed.
 
+ 24. the differentiable forward: render(clamp=False) under autograd,
+     whose trace takes the replay route (the topology kernels, then
+     trace_shade and its backward) and runs eagerly, by rule. (a) office
+     at 1920x1080, tess 10, "cluster" and "auto": the SSE against
+     0.9 * render + 0.02, its loss and 23 gradients against
+     render_loss_grad_image's (rtol 1e-5, REL_GRAD x max|g|), its image
+     against the no-grad render(clamp=False) (the render bar), the
+     launches of one call (K2, K1, K1', K3, K4, K5 and K6, or K7 with K3
+     to K6 and no cluster kernel), no graph made, the median of three
+     warm forward+backward walls beside render_loss_grad_image's graphed
+     median, and the peak reserved memory; (b) o_10 (textured) at golden
+     resolution with "bilinear": the kernels' route against plain=True
+     (the image at the render bar, every gradient at the gradient bar,
+     texels, uv_u and uv_v nonzero), and the no-grad render(clamp=False)
+     graphed (its third call a replay) at the render bar against the
+     image under grad; (c) o_04 at golden resolution under autograd
+     against render_loss_grad_image, timed; (d) tools/fit_palette_torch.py
+     on o_07 at scale 1.0 for 50 Adam steps at the tool's learning rate
+     and at a tenth of it (FIT_LRS): the cell MSE falls at the tenth, the
+     median seconds per step.
+
 On a CUDA device the entry points replay CUDA graphs by default, so the
 phases before 23 run them graphed too: their launch counts are per
 replay (ops/graphs.py), with the launches of the IF nodes' bodies that
@@ -2455,6 +2476,221 @@ def graphed_paths(dev: str, tess: int = 10, full=(1920, 1080)) -> None:
     print(f"graphs: phase 23 took {time.perf_counter() - t0:.2f} s")
 
 
+#: phase 24: the palette fit's scene, scale and steps, and its learning
+#: rates: the tool's default and a tenth of it. The golden palettes are
+#: this fit's result, so the cell MSE starts near its minimum, and at
+#: the default Adam's first steps (about lr per leaf) overshoot it
+#: before they return; the check that the MSE falls is made at a tenth
+FIT_SCENE, FIT_SCALE, FIT_STEPS = "o_07_toon_faces", 1.0, 50
+FIT_LRS, FIT_LR_FALLS = (2e-2, 2e-3), 2e-3
+
+
+def unclamped_loss_grads(data, camera, target, cfg) -> tuple:
+    """Phase 24: the SSE of render(clamp=False) against ``target`` under
+    autograd -> (loss, the gradients of split_params, the image)."""
+    import torch
+
+    from myraytracer_tpu_torch import merge_params, split_params
+    from myraytracer_tpu_torch.ops.render import render
+
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in split_params(data).items()}
+    img = render(merge_params(data, params), camera, cfg=cfg, clamp=False)
+    loss = torch.sum((img - target) ** 2)
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(params[k]) if g is None
+                           else g for k, g in zip(params, got)}, img.detach()
+
+
+def same_loss_grads_as(what, got, want) -> str:
+    """The loss within RTOL and every gradient within REL_GRAD x max|want|
+    of (loss, grads) ``want``; returns the description."""
+    (loss, grads), (loss_w, grads_w) = got, want
+    rel = abs(float(loss) - float(loss_w)) / abs(float(loss_w))
+    check(rel <= RTOL, f"{what}: loss {float(loss)} vs {float(loss_w)}, "
+          f"rel diff {rel}")
+    check(set(grads) == set(grads_w) and len(grads) == 23,
+          f"{what}: gradient keys")
+    worst = max(close_scaled(f"{what}: grad {k}", grads[k], grads_w[k],
+                             REL_GRAD) for k in grads if grads[k].numel())
+    return (f"loss {float(loss)} vs {float(loss_w)} (rel {rel:.3g}), worst "
+            f"gradient diff {worst:.3g} * max|a|")
+
+
+def render_bar(what, got, want) -> float:
+    """>= GALLERY_AGREE of the pixels within 1e-4; returns the share."""
+    agree = float(((got - want).abs().amax(dim=-1) <= 1e-4).float().mean())
+    check(agree >= GALLERY_AGREE, f"{what}: {agree} of pixels within 1e-4")
+    return agree
+
+
+def graphed_walls(fn) -> tuple:
+    """(result, seconds of three replays, launches) of a graphed entry
+    point, after its warm-up and capture."""
+    fn()
+    fn()
+    return timed(fn)
+
+
+def peak_reserved(fn) -> float:
+    """GiB of max_memory_reserved over one call of ``fn`` from an empty
+    graph cache and allocator."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import graphs
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_reserved() / 2**30
+
+
+def diff_forward(report: dict, dev: str, tess: int = 10,
+                 full=(1920, 1080)) -> None:
+    """Phase 24: render(clamp=False) under autograd on office 1080p
+    ("cluster", "auto"), o_10 with "bilinear" and o_04; the port's
+    palette fit on o_07. Each kernel's launches per office call on this
+    path go into its ``report`` entry (``diff_launches``)."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import graphs
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
+    from myraytracer_tpu_torch.scenes.golden import (GOLDEN_SCENES,
+                                                     scene_08_office)
+
+    t0 = time.perf_counter()
+    summary = {}
+    scene = scene_08_office(tess=tess, resolution=full)
+    data, camera = scene.build(device=dev), scene.camera
+    where = f"office {full[0]}x{full[1]}"
+    for method in ("cluster", "auto"):
+        cfg = tr.TraceConfig(tri_method=method)
+        target = 0.9 * render(data, camera, cfg=cfg) + 0.02
+        with torch.no_grad():
+            img_ng = render(data, camera, cfg=cfg, clamp=False)
+
+        def diff():
+            return unclamped_loss_grads(data, camera, target, cfg)
+        peak = peak_reserved(diff)
+        (loss, grads, img), secs, launches = timed(diff)
+        check(graphs.cache_size() == 0, f"diff {where} {method}: a "
+              f"grad-recording render made a graph")
+        (want, secs_w, _) = graphed_walls(
+            lambda: render_loss_grad_image(data, camera, target, cfg=cfg))
+        what = f"diff {where} {method}"
+        agree = same_loss_grads_as(what, (loss, grads), want)
+        share = render_bar(f"{what} image vs no-grad", img, img_ng)
+        per_call = {k: v // 3 for k, v in launches.items() if v}
+        kernels = (FWD_KERNELS if method == "cluster" else BVH_FWD_KERNELS
+                   ) + ("seg_fwd", "seg_bwd")
+        for k in kernels:
+            check(per_call.get(k, 0) > 0, f"{what}: {k} was not launched")
+        if method != "cluster":
+            for k in CLUSTER_KERNELS:
+                check(k not in per_call, f"{what}: {k} was launched")
+        for k in kernels:
+            report[k].setdefault("diff_launches", per_call.get(k, 0))
+        med, med_w = statistics.median(secs), statistics.median(secs_w)
+        print(f"{what}: render(clamp=False) under autograd, forward+"
+              f"backward median {med:.4f} s of {secs}; "
+              f"render_loss_grad_image graphed {med_w:.4f} s of {secs_w}; "
+              f"{agree}; image {share:.6f} of pixels within 1e-4 of the "
+              f"no-grad render(clamp=False); peak reserved {peak:.3f} GiB; "
+              f"launches per call {per_call}")
+        summary[f"office_{method}"] = dict(
+            fwd_bwd_s=secs, step_graphed_s=secs_w, peak_reserved_gib=peak,
+            launches=per_call)
+        del target, img_ng, img, grads, want
+
+    sc = GOLDEN_SCENES["o_10_pokemon"][0]()
+    gdata, cam = sc.build(device=dev), sc.camera
+    cfg = tr.TraceConfig(texture_filter="bilinear")
+    target = 0.9 * render(gdata, cam) + 0.02
+    what = f"diff o_10_pokemon {cam.width}x{cam.height} bilinear"
+    (loss, grads, img), secs, launches = timed(
+        lambda: unclamped_loss_grads(gdata, cam, target, cfg))
+    for k in FWD_KERNELS:
+        check(launches[k] > 0, f"{what}: {k} was not launched")
+    check(launches["seg_fwd"] == 0, f"{what}: a textured scene took K5")
+    with graphs.disable_graphs():
+        loss_p, grads_p, img_p = unclamped_loss_grads(
+            gdata, cam, target, cfg._replace(plain=True))
+    agree = same_loss_grads_as(f"{what} vs plain", (loss, grads),
+                               (loss_p, grads_p))
+    share = render_bar(f"{what} vs plain", img, img_p)
+    for k in ("texels", "uv_u", "uv_v"):
+        check(float(grads[k].abs().max()) > 0, f"{what}: grad {k} is zero")
+
+    def no_grad_render():
+        with torch.no_grad():
+            return render(gdata, cam, cfg=cfg, clamp=False)
+    no_grad_render()
+    no_grad_render()
+    img_g, _, moved = launches_of(no_grad_render)
+    check(moved["replays"] == 1 and moved["warm_ups"] == 0,
+          f"{what}: the no-grad render(clamp=False) did not replay: {moved}")
+    share_g = render_bar(f"{what} graphed no-grad vs under grad", img_g, img)
+    print(f"{what}: forward+backward median {statistics.median(secs):.4f} s "
+          f"of {secs}; vs plain: {agree}, image {share:.6f}; the no-grad "
+          f"render(clamp=False) replayed, {share_g:.6f} of pixels within "
+          f"1e-4 of the image under grad; launches of 3 calls "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    summary["o_10_bilinear"] = dict(fwd_bwd_s=secs)
+    del gdata, target, img, img_p, img_g, grads, grads_p
+
+    sc = GOLDEN_SCENES["o_04_molecule"][0]()
+    gdata, cam = sc.build(device=dev), sc.camera
+    cfg = tr.TraceConfig()
+    target = 0.9 * render(gdata, cam) + 0.02
+    what = f"diff o_04_molecule {cam.width}x{cam.height}"
+    peak = peak_reserved(
+        lambda: unclamped_loss_grads(gdata, cam, target, cfg))
+    (loss, grads, _), secs, launches = timed(
+        lambda: unclamped_loss_grads(gdata, cam, target, cfg))
+    want, secs_w, _ = graphed_walls(
+        lambda: render_loss_grad_image(gdata, cam, target, cfg=cfg))
+    agree = same_loss_grads_as(what, (loss, grads), want)
+    for k in ("shade_pre", "shade_phong"):
+        check(launches[k] > 0, f"{what}: {k} was not launched")
+    print(f"{what}: forward+backward median {statistics.median(secs):.4f} s "
+          f"of {secs}; render_loss_grad_image graphed "
+          f"{statistics.median(secs_w):.4f} s of {secs_w}; {agree}; peak "
+          f"reserved {peak:.3f} GiB; launches of 3 calls "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    summary["o_04"] = dict(fwd_bwd_s=secs, step_graphed_s=secs_w,
+                           peak_reserved_gib=peak)
+    del gdata, target, grads, want
+    graphs.clear()
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import fit_palette_torch
+
+    for lr in FIT_LRS:
+        what = f"fit_palette {FIT_SCENE} scale {FIT_SCALE} lr {lr}"
+        out = fit_palette_torch.fit(
+            FIT_SCENE, FIT_STEPS, FIT_SCALE, lr, dev,
+            log=lambda line: print(f"{what}: {line}"))
+        losses = out["losses"]
+        check(all(math.isfinite(x) for x in losses), f"{what}: {losses}")
+        if lr == FIT_LR_FALLS:
+            check(losses[-1] < losses[0], f"{what}: the cell MSE did not "
+                  f"fall: {losses[0]} -> {losses[-1]}")
+        step = statistics.median(out["step_s"][1:])
+        print(f"{what}: {FIT_STEPS} steps, cell MSE {losses[0]} -> "
+              f"{losses[-1]} (least {min(losses)} at step "
+              f"{losses.index(min(losses))}), median {step:.4f} s per step "
+              f"(first {out['step_s'][0]:.3f} s), final cell delta mean "
+              f"{out['cell_delta_mean']:.4f} max {out['cell_delta_max']:.4f}")
+        summary[f"fit_palette_lr_{lr}"] = dict(
+            step_s=step, first_loss=losses[0], last_loss=losses[-1])
+    print("diff summary: " + json.dumps(summary))
+    print(f"diff: phase 24 took {time.perf_counter() - t0:.2f} s")
+
+
 def build_gallery(dev):
     """The ten goldens at their golden resolution, and the mixed scene at
     1920x1080, on the card: name -> (Scene, SceneData)."""
@@ -2563,6 +2799,7 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     native_builder(dev)
     inverse_demo()
     graphed_paths(dev, tess, full)
+    diff_forward(report, dev, tess, full)
     return report
 
 

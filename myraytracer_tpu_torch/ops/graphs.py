@@ -56,10 +56,18 @@ conditional segment under a CUDA-graph IF node (:func:`if_node`):
             skips the body would hang the others): the port's one
             all-reduce raises there (:func:`if_body_site`).
 
+  autograd  a call that records autograd (``render(clamp=False)`` on a
+            scene or camera whose tensors require grad, with grad mode
+            on) runs eagerly, by rule: a replay returns copies of the
+            graph's output buffers, which carry no autograd graph. The
+            caller decides it from its arguments before the call
+            (``records_grad``, :func:`runs_eagerly`), so such a call never
+            makes a key or a cache entry.
+
 :func:`disable_graphs` runs every entry point eagerly, the counterpart of
 ``jax.disable_jit()``; it is the only eager switch for CUDA tensors
-apart from the backend rule above. Tensors on the CPU always run
-eagerly. A capture that fails raises
+apart from the backend and autograd rules above. Tensors on the CPU
+always run eagerly. A capture that fails raises
 :class:`GraphCaptureError`, naming the entry point and the line that
 failed; no call is retried eagerly.
 """
@@ -217,29 +225,33 @@ def make_key(name: str, static, held: Sequence[torch.Tensor],
                 dist.get_world_size(group), group))
 
 
-def runs_eagerly(device, group=None) -> bool:
+def runs_eagerly(device, group=None, records_grad: bool = False) -> bool:
     """Does :func:`run` call its region eagerly? On the CPU, inside
-    :func:`disable_graphs`, and for a process group whose backend is not
-    NCCL (its collectives cannot be captured)."""
+    :func:`disable_graphs`, for a process group whose backend is not
+    NCCL (its collectives cannot be captured), and for a call that
+    records autograd (a replay's outputs carry no autograd graph)."""
     return (torch.device(device).type != "cuda" or _disabled > 0
-            or (group is not None and dist.get_backend(group) != "nccl"))
+            or (group is not None and dist.get_backend(group) != "nccl")
+            or records_grad)
 
 
 def run(name: str, fn: Callable, device, static=(),
         held: Sequence[torch.Tensor] = (),
-        staged: Sequence[torch.Tensor] = (), group=None):
+        staged: Sequence[torch.Tensor] = (), group=None,
+        records_grad: bool = False):
     """``fn(*staged)`` on ``device``, replayed from a CUDA graph.
 
     ``fn`` reads the tensors of ``held`` in place (it closes over them)
     and the ``staged`` inputs through its arguments, and returns a
     tensor or a tuple, list or dict of tensors (None and numbers pass
     through). ``static`` is the hashable rest of the key; ``group`` the
-    process group of the collectives ``fn`` makes, if any. Where
-    :func:`runs_eagerly` holds, ``fn`` runs eagerly with the staged
+    process group of the collectives ``fn`` makes, if any;
+    ``records_grad`` whether the caller's autograd records the call.
+    Where :func:`runs_eagerly` holds, ``fn`` runs eagerly with the staged
     inputs moved to ``device``.
     """
     device = torch.device(device)
-    if runs_eagerly(device, group):
+    if runs_eagerly(device, group, records_grad):
         return fn(*(s.to(device) for s in staged))
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

@@ -27,6 +27,14 @@ training step one graph of forward and backward. The camera reaches the
 graph as a staged input, so a new camera of the same size replays the
 same graph. ``graphs.disable_graphs()`` runs them eagerly; CPU tensors
 always do.
+
+``render(clamp=False)`` is differentiable, as the reference's is: under
+autograd its trace takes the replay route (``tracer.replays``) and the
+call runs eagerly, by rule (``graphs.runs_eagerly``). The forward-only
+entry points (``render(clamp=True)``, ``render_aa`` and the sharded
+forwards) trace under ``torch.no_grad()`` with the nearest texel
+(:func:`forward_only`), the counterpart of the reference's
+``fused_shade=True``, so they keep the K3/K4 chain and their graphs.
 """
 
 from __future__ import annotations
@@ -69,9 +77,16 @@ def _fit_tile(R: int, tile: int, quantum: int) -> int:
     return tile
 
 
+def forward_only(cfg: tr.TraceConfig) -> tr.TraceConfig:
+    """The config of the entry points that take no gradient: the nearest
+    texel, the fetch of K3/K4 (the reference's ``fused_shade=True``)."""
+    return cfg.validate()._replace(texture_filter="nearest")
+
+
 def _trace_tiled(scene, o, d, cfg: tr.TraceConfig, tile: int,
                  quantum: int = 1) -> torch.Tensor:
-    """Trace a flat [R, 3] ray batch in tiles of ``tile`` rays."""
+    """Trace a flat [R, 3] ray batch in tiles of ``tile`` rays, sharing
+    one ``pack_trace`` (its shade rows among it) across the tiles."""
     R = o.shape[0]
     pack = tr.pack_trace(scene, cfg)
     if R <= tile:
@@ -113,12 +128,13 @@ def primary_rays_blocked(camera: Camera, device, block: int = BLOCK):
 
 
 def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
-             staged=(), group=None):
+             staged=(), group=None, records_grad: bool = False):
     """``fn(camera, *staged)`` through :func:`graphs.run`: the scene's
     tensors and ``held`` read in place, the camera (packed) and
     ``staged`` copied into the graph's buffers, keyed by the scene's
     static fields, the camera's size, ``static`` and the process
-    ``group`` of a sharded entry point."""
+    ``group`` of a sharded entry point; eagerly where ``records_grad``
+    (autograd records the call)."""
     W, H = camera.width, camera.height
     scene_static, scene_held = graphs.scene_inputs(scene)
 
@@ -128,7 +144,8 @@ def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
     return graphs.run(name, body, scene.device,
                       static=(scene_static, W, H) + tuple(static),
                       held=scene_held + list(held),
-                      staged=(camera.packed(),) + tuple(staged), group=group)
+                      staged=(camera.packed(),) + tuple(staged), group=group,
+                      records_grad=records_grad)
 
 
 def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
@@ -139,10 +156,23 @@ def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     ``clamp=False``, which returns the unclamped linear image. ``tile``
     (rays, rounded down to whole screen blocks) traces the frame in
     batches; None traces it in one. One CUDA graph on the card.
+
+    ``clamp=True`` takes no gradient: it traces under ``torch.no_grad()``
+    with :func:`forward_only`'s nearest texel. ``clamp=False`` is
+    differentiable in every scene tensor and the camera: where autograd
+    records the call (``tracer.records_grad``) each tile takes the replay
+    route, the image carries the autograd graph and the call runs
+    eagerly, by rule; without it the call replays its graph.
     """
-    return _graphed("render",
-                    lambda cam: _render(scene, cam, cfg, tile, clamp),
-                    scene, camera, static=(cfg, tile, clamp))
+    if clamp:
+        cfg = forward_only(cfg)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not clamp):
+        return _graphed("render",
+                        lambda cam: _render(scene, cam, cfg, tile, clamp),
+                        scene, camera, static=(cfg, tile, clamp),
+                        records_grad=tr.records_grad(
+                            scene, camera.eye, camera.center, camera.up,
+                            camera.fovy))
 
 
 def _render(scene, camera: Camera, cfg: tr.TraceConfig, tile: Optional[int],
@@ -264,13 +294,15 @@ def _aa_refine(scene, camera: Camera, img1,
                ) -> torch.Tensor:
     """The adaptive-supersampling pass over a finished pass-1 image: one
     CUDA graph on the card, with ``img1`` staged (copied into the graph's
-    buffer) like the camera."""
-    return _graphed(
-        "aa_refine",
-        lambda cam, img: _aa_refine_body(scene, cam, img, cfg, tile, subp,
-                                         threshold, budget_frac),
-        scene, camera, static=(cfg, tile, subp, threshold, budget_frac),
-        staged=(img1,))
+    buffer) like the camera. No gradient, the nearest texel."""
+    cfg = forward_only(cfg)
+    with torch.no_grad():
+        return _graphed(
+            "aa_refine",
+            lambda cam, img: _aa_refine_body(scene, cam, img, cfg, tile,
+                                             subp, threshold, budget_frac),
+            scene, camera, static=(cfg, tile, subp, threshold, budget_frac),
+            staged=(img1,))
 
 
 def _aa_refine_body(scene, camera: Camera, img1, cfg: tr.TraceConfig,
@@ -296,7 +328,7 @@ def render_aa(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     first) keep their pass-1 colour. ``tile`` (rays) bounds each pass's
     trace batch; None traces each pass in one. Two CUDA graphs on the
     card, as the reference's two jits: pass 1 (:func:`render`'s) and the
-    refine.
+    refine. No gradient, the nearest texel (:func:`forward_only`).
     """
     img1 = render(scene, camera, cfg, tile)
     return _aa_refine(scene, camera, img1, cfg, tile, subp, threshold,

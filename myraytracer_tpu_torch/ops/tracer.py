@@ -22,11 +22,14 @@ is "cluster" (its ``resolved_fused_shade``) only because that pipeline
 was built around the cluster megakernel; its own tests show the three
 methods' images equal within 1e-5 and the fused and XLA shading equal.
 
-:func:`trace` runs that chain. The training step splits it in two:
-:func:`trace_topology` runs the same chain without gradients and records
-per segment which primitive each ray hit and the shadow mask;
-:func:`trace_shade` replays the differentiable shading on that fixed
-topology, with no traversal. It takes the fused K5/K6 segment
+The training step splits that chain in two: :func:`trace_topology` runs
+it without gradients and records per segment which primitive each ray
+hit and the shadow mask; :func:`trace_shade` replays the differentiable
+shading on that fixed topology, with no traversal. :func:`trace` runs
+the chain where the kernel shading equals the reference's XLA shading,
+and the two passes (the replay route) where they differ: when autograd
+records the call, and for the bilinear texel fetch on a textured scene
+(:func:`replays`). It takes the fused K5/K6 segment
 (ops/shade_grad.py) exactly where the reference's
 ``resolved_fused_shade_grad`` would: triangles, no analytic primitive,
 no texture, at least one light, and ``fused_shade_grad`` set
@@ -97,9 +100,12 @@ class TraceConfig(NamedTuple):
     #: whether the default should be "bvh" is for the card's numbers of
     #: both to decide (PERF.md).
     tri_method: str = "cluster"
-    #: the texel fetch of the training replay: "nearest" or "bilinear"
-    #: (differentiable in the texels and the UVs). The forward shades
-    #: through K3/K4, which always take the nearest texel.
+    #: the texel fetch: "nearest" or "bilinear" (differentiable in the
+    #: texels and the UVs). The replay route (:func:`trace_shade`, which
+    #: :func:`trace` takes for "bilinear" on a textured scene) honours
+    #: it; K3/K4 always take the nearest texel, so the forward-only entry
+    #: points (``render(clamp=True)``, ``render_aa``, the sharded
+    #: forwards) set "nearest", as the reference's ``fused_shade=True``.
     texture_filter: str = "nearest"
     #: run the plain PyTorch versions of the kernels, on any device
     #: (compares the kernels with them on the card)
@@ -165,7 +171,7 @@ def pack_trace(scene, cfg: TraceConfig = TraceConfig()) -> TracePack:
     cl_rows = tri_flat = None
     if scene.n_tris:
         if method == "cluster":
-            cl_rows = cc.pack_cluster_rows(scene)
+            cl_rows = cc.pack_cluster_rows(scene).detach()
         else:
             tri_flat = trv.pack_tri_vertices(scene).detach().contiguous()
     return TracePack(
@@ -392,6 +398,28 @@ def _owned(carry: Bounce) -> Bounce:
     return Bounce(*(t.clone() for t in carry))
 
 
+def records_grad(scene, *tensors: torch.Tensor) -> bool:
+    """Would autograd record a call on ``scene`` and ``tensors``? Grad
+    mode is on and one of them, or a tensor of the scene, requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t.requires_grad for t in tensors) or any(
+        isinstance(v, torch.Tensor) and v.requires_grad
+        for v in (getattr(scene, f.name) for f in dataclasses.fields(scene)))
+
+
+def replays(scene, o: torch.Tensor, d: torch.Tensor, cfg: TraceConfig
+            ) -> bool:
+    """Does :func:`trace` take the replay route (:func:`trace_topology`,
+    then :func:`trace_shade`)? Where the reference's XLA shading differs
+    from K3/K4: autograd records the call (K3/K4 have no VJP), or
+    ``cfg`` asks for the bilinear texel fetch on a textured scene (K3/K4
+    take the nearest texel). Decided from the arguments, before any
+    work."""
+    return records_grad(scene, o, d) or (
+        cfg.texture_filter == "bilinear" and scene.has_textures)
+
+
 def trace(scene, o: torch.Tensor, d: torch.Tensor,
           cfg: TraceConfig = TraceConfig(), pack: Optional[TracePack] = None
           ) -> torch.Tensor:
@@ -400,10 +428,22 @@ def trace(scene, o: torch.Tensor, d: torch.Tensor,
     Segment 0 is the primary hit (weight 1); segments 1.. follow the
     mirror chain with weight *= mirror; a miss adds weight * background
     and kills the ray. ``pack`` (:func:`pack_trace`) can be shared by the
-    tiles of one render.
+    tiles of one render; made in the same grad mode as the call, its
+    ``geom`` carries the gradient of the shared rows, so their gather's
+    backward runs once.
+
+    Differentiable as the reference's: where :func:`replays` holds, the
+    topology of the detached rays is recorded without gradients and
+    :func:`trace_shade` replays the shading on it (its fused K5/K6
+    segment or its autograd replay, by :meth:`TraceConfig.fused_grad`),
+    with the rays undetached, so gradients reach the scene and the rays.
+    Else the K3/K4 chain of :func:`segment_step` runs.
     """
     if pack is None:
         pack = pack_trace(scene, cfg)
+    if replays(scene, o, d, cfg):
+        topo = trace_topology(scene, o.detach(), d.detach(), cfg, pack)
+        return trace_shade(scene, o, d, topo, cfg, pack.geom)
     R = o.shape[0]
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=o.device),
                    color=torch.zeros((R, 3), device=o.device))

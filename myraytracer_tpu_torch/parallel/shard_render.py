@@ -106,13 +106,17 @@ def render_sharded(scene, camera, mesh,
     down to whole blocks; None traces the rank's share in one batch). At
     mesh size 1 the image equals ``render``'s bit for bit. Every rank
     returns the whole image, clamped to <= 1. One CUDA graph on the card
-    over NCCL, with the camera staged.
+    over NCCL, with the camera staged. No gradient, the nearest texel
+    (``ops/render.forward_only``), as ``render(clamp=True)``.
     """
-    from myraytracer_tpu_torch.ops.render import _graphed
+    from myraytracer_tpu_torch.ops.render import _graphed, forward_only
 
-    return _graphed("render_sharded",
-                    lambda cam: _render_sharded(scene, cam, mesh, cfg, tile),
-                    scene, camera, static=(cfg, tile), group=mesh.get_group())
+    cfg = forward_only(cfg)
+    with torch.no_grad():
+        return _graphed(
+            "render_sharded",
+            lambda cam: _render_sharded(scene, cam, mesh, cfg, tile),
+            scene, camera, static=(cfg, tile), group=mesh.get_group())
 
 
 def _render_sharded(scene, camera, mesh, cfg: tr.TraceConfig,
@@ -150,19 +154,22 @@ def render_aa_sharded(scene, camera, mesh,
     the image equals ``render_aa``'s bit for bit. Two CUDA graphs on the
     card over NCCL, as the reference's programs: pass 1
     (:func:`render_sharded`'s) and the refine, with the camera and the
-    pass-1 image staged.
+    pass-1 image staged. No gradient, the nearest texel.
     """
     from myraytracer_tpu_torch.ops import render as R
 
     subp = R.AA_SUBP if subp is None else subp
     threshold = R.AA_THRESHOLD if threshold is None else threshold
+    cfg = R.forward_only(cfg)
     img1 = render_sharded(scene, camera, mesh, cfg, tile)
-    return R._graphed(
-        "aa_refine_sharded",
-        lambda cam, img: _aa_refine_sharded(scene, cam, img, mesh, cfg, tile,
-                                            subp, threshold, budget_frac),
-        scene, camera, static=(cfg, tile, subp, threshold, budget_frac),
-        staged=(img1,), group=mesh.get_group())
+    with torch.no_grad():
+        return R._graphed(
+            "aa_refine_sharded",
+            lambda cam, img: _aa_refine_sharded(scene, cam, img, mesh, cfg,
+                                                tile, subp, threshold,
+                                                budget_frac),
+            scene, camera, static=(cfg, tile, subp, threshold, budget_frac),
+            staged=(img1,), group=mesh.get_group())
 
 
 def _aa_refine_sharded(scene, camera, img1, mesh, cfg: tr.TraceConfig,

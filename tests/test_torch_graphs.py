@@ -107,13 +107,15 @@ def regions(monkeypatch):
     names = []
     run = graphs.run
 
-    def watched(name, fn, device, static=(), held=(), staged=(), group=None):
+    def watched(name, fn, device, static=(), held=(), staged=(), group=None,
+                records_grad=False):
         names.append(name)
 
         def body(*a):
             with NoHostRead():
                 return fn(*a)
-        return run(name, body, device, static, held, staged, group)
+        return run(name, body, device, static, held, staged, group,
+                   records_grad)
 
     monkeypatch.setattr(graphs, "run", watched)
     return names
@@ -275,7 +277,8 @@ def keys(monkeypatch):
     """Records the key of every graphs.run call instead of running it."""
     got = []
 
-    def record(name, fn, device, static=(), held=(), staged=(), group=None):
+    def record(name, fn, device, static=(), held=(), staged=(), group=None,
+               records_grad=False):
         got.append(graphs.make_key(name, static, held, staged, group))
 
     monkeypatch.setattr(graphs, "run", record)

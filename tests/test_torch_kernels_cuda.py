@@ -41,6 +41,8 @@ from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.ops.render import (primary_rays_blocked, render,
                                                render_aa,
                                                render_loss_grad_image)
+from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
+                                                         split_params)
 from myraytracer_tpu_torch.scenes import kinds
 from myraytracer_tpu_torch.scenes.golden import scene_08_office
 
@@ -290,6 +292,55 @@ def test_render_kernels_match_plain(cuda):
     diff = (got - want).abs().amax(dim=-1)
     assert float((diff <= 1e-4).float().mean()) >= 0.995
     assert bool(torch.isfinite(got).all())
+
+
+def _unclamped_loss_grads(data, cam, cfg, target):
+    """The SSE of render(clamp=False) against ``target`` under autograd:
+    (loss, gradients of split_params, the image)."""
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in split_params(data).items()}
+    img = render(merge_params(data, params), cam, cfg=cfg, clamp=False)
+    loss = torch.sum((img - target) ** 2)
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(params[k]) if g is None else g
+                           for k, g in zip(params, got)}, img.detach()
+
+
+@pytest.mark.parametrize("name", ["office", "textured_bilinear"])
+def test_unclamped_render_grads_through_kernels_match_plain(cuda, name):
+    """render(clamp=False) under autograd: the topology kernels (and on
+    office K5 forward, K6 backward) against the plain versions: the loss
+    within rtol 1e-5, every gradient within 5e-4 * max|plain|, the image
+    at the render bar; the call runs eagerly and makes no graph."""
+    if name == "office":
+        s, cfg = scene_08_office(tess=10, resolution=(480, 270)), (
+            tr.TraceConfig())
+    else:
+        s, cfg = kinds.textured_scene(w=160, h=90), tr.TraceConfig(
+            texture_filter="bilinear")
+    data = s.build(device=cuda)
+    target = 0.9 * render(data, s.camera) + 0.02
+    graphs.clear()
+    before = dict(LAUNCHES)
+    loss, grads, img = _unclamped_loss_grads(data, s.camera, cfg, target)
+    torch.cuda.synchronize()
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    fwd = ("phase1_exact", "cluster_scan_closest", "cluster_scan_anyhit",
+           "shade_pre", "shade_phong")
+    for k in fwd + (("seg_fwd", "seg_bwd") if name == "office" else ()):
+        assert launched[k] > 0, k
+    assert graphs.cache_size() == 0
+    with graphs.disable_graphs():
+        loss_p, grads_p, img_p = _unclamped_loss_grads(
+            data, s.camera, cfg._replace(plain=True), target)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for k in grads:
+        _close_scaled(grads[k], grads_p[k], k, rel=5e-4)
+    if name != "office":
+        for k in ("texels", "uv_u", "uv_v"):
+            assert float(grads[k].abs().max()) > 0, k
+    diff = (img - img_p).abs().amax(dim=-1)
+    assert float((diff <= 1e-4).float().mean()) >= 0.995
 
 
 def test_mirror_scene_tiled_kernels_match_plain(cuda):

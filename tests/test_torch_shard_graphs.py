@@ -160,9 +160,11 @@ def keys(monkeypatch):
     got = []
     run = graphs.run
 
-    def record(name, fn, device, static=(), held=(), staged=(), group=None):
+    def record(name, fn, device, static=(), held=(), staged=(), group=None,
+               records_grad=False):
         got.append(graphs.make_key(name, static, held, staged, group))
-        return run(name, fn, device, static, held, staged, group)
+        return run(name, fn, device, static, held, staged, group,
+                   records_grad)
 
     monkeypatch.setattr(graphs, "run", record)
     return got
