@@ -167,8 +167,8 @@ scan's kernels were not.
 
  24. the differentiable forward: render(clamp=False) under autograd,
      whose trace takes the replay route (the topology kernels, then
-     trace_shade and its backward) and runs eagerly, by rule. (a) office
-     at 1920x1080, tess 10, "cluster" and "auto": the SSE against
+     trace_shade and its backward), run eagerly (disable_graphs). (a)
+     office at 1920x1080, tess 10, "cluster" and "auto": the SSE against
      0.9 * render + 0.02, its loss and 23 gradients against
      render_loss_grad_image's (rtol 1e-5, REL_GRAD x max|g|), its image
      against the no-grad render(clamp=False) (the render bar), the
@@ -185,6 +185,26 @@ scan's kernels were not.
      on o_07 at scale 1.0 for 50 Adam steps at the tool's learning rate
      and at a tenth of it (FIT_LRS): the cell MSE falls at the tenth, the
      median seconds per step.
+ 25. the same render(clamp=False) under autograd graphed: a forward
+     graph and, at the loss's backward, a backward graph
+     (ops/graphs.py's differentiable region), against disable_graphs()
+     and against the graphed render_loss_grad_image of the same target.
+     Office 1920x1080 on "cluster" and "auto", 10 pairs in turns: the
+     warm-up, the capture of both graphs and a replay of both in the
+     first three calls; the image bit-equal to eager, the loss within
+     rtol 1e-6 and the 23 gradients within REL_GRAD x max|g| of eager
+     (phase 23's bars) and within rtol 1e-5 / REL_GRAD of the training
+     step (phase 24's); one launch of each of K2, K1, K1', K3, K4, K5 and
+     K6 per replayed call on "cluster" and of K7 (closest, any-hit), K3,
+     K4, K5 and K6 on "auto" (each kernel's diff_launches); on "cluster"
+     the pending rule (two forwards of one key, then one backward: the
+     second runs eagerly, the gradients at phase 23's bars against
+     all-eager; a dropped output frees the key) and max_memory_reserved
+     eager and graphed; device busy of a graphed and an eager call
+     (torch.profiler). o_04 at 500x500 (5 pairs): 6 IF nodes in the two
+     graphs, 3 bodies skipped per replay (named), loss and gradients
+     equal to eager's to the bit. o_10 at 600x300 with "bilinear" (5
+     pairs): the same bars as office.
 
 On a CUDA device the entry points replay CUDA graphs by default, so the
 phases before 23 run them graphed too: their launch counts are per
@@ -2548,12 +2568,11 @@ def peak_reserved(fn) -> float:
     return torch.cuda.max_memory_reserved() / 2**30
 
 
-def diff_forward(report: dict, dev: str, tess: int = 10,
-                 full=(1920, 1080)) -> None:
-    """Phase 24: render(clamp=False) under autograd on office 1080p
-    ("cluster", "auto"), o_10 with "bilinear" and o_04; the port's
-    palette fit on o_07. Each kernel's launches per office call on this
-    path go into its ``report`` entry (``diff_launches``)."""
+def diff_forward(dev: str, tess: int = 10, full=(1920, 1080)) -> None:
+    """Phase 24: render(clamp=False) under autograd, eagerly
+    (disable_graphs; phase 25 replays it), on office 1080p ("cluster",
+    "auto"), o_10 with "bilinear" and o_04; the port's palette fit on
+    o_07."""
     import torch
 
     from myraytracer_tpu_torch.ops import graphs
@@ -2575,10 +2594,11 @@ def diff_forward(report: dict, dev: str, tess: int = 10,
 
         def diff():
             return unclamped_loss_grads(data, camera, target, cfg)
-        peak = peak_reserved(diff)
-        (loss, grads, img), secs, launches = timed(diff)
-        check(graphs.cache_size() == 0, f"diff {where} {method}: a "
-              f"grad-recording render made a graph")
+        with graphs.disable_graphs():
+            peak = peak_reserved(diff)
+            (loss, grads, img), secs, launches = timed(diff)
+        check(graphs.cache_size() == 0, f"diff {where} {method}: an eager "
+              f"call made a graph")
         (want, secs_w, _) = graphed_walls(
             lambda: render_loss_grad_image(data, camera, target, cfg=cfg))
         what = f"diff {where} {method}"
@@ -2592,8 +2612,6 @@ def diff_forward(report: dict, dev: str, tess: int = 10,
         if method != "cluster":
             for k in CLUSTER_KERNELS:
                 check(k not in per_call, f"{what}: {k} was launched")
-        for k in kernels:
-            report[k].setdefault("diff_launches", per_call.get(k, 0))
         med, med_w = statistics.median(secs), statistics.median(secs_w)
         print(f"{what}: render(clamp=False) under autograd, forward+"
               f"backward median {med:.4f} s of {secs}; "
@@ -2611,8 +2629,9 @@ def diff_forward(report: dict, dev: str, tess: int = 10,
     cfg = tr.TraceConfig(texture_filter="bilinear")
     target = 0.9 * render(gdata, cam) + 0.02
     what = f"diff o_10_pokemon {cam.width}x{cam.height} bilinear"
-    (loss, grads, img), secs, launches = timed(
-        lambda: unclamped_loss_grads(gdata, cam, target, cfg))
+    with graphs.disable_graphs():
+        (loss, grads, img), secs, launches = timed(
+            lambda: unclamped_loss_grads(gdata, cam, target, cfg))
     for k in FWD_KERNELS:
         check(launches[k] > 0, f"{what}: {k} was not launched")
     check(launches["seg_fwd"] == 0, f"{what}: a textured scene took K5")
@@ -2647,10 +2666,11 @@ def diff_forward(report: dict, dev: str, tess: int = 10,
     cfg = tr.TraceConfig()
     target = 0.9 * render(gdata, cam) + 0.02
     what = f"diff o_04_molecule {cam.width}x{cam.height}"
-    peak = peak_reserved(
-        lambda: unclamped_loss_grads(gdata, cam, target, cfg))
-    (loss, grads, _), secs, launches = timed(
-        lambda: unclamped_loss_grads(gdata, cam, target, cfg))
+    with graphs.disable_graphs():
+        peak = peak_reserved(
+            lambda: unclamped_loss_grads(gdata, cam, target, cfg))
+        (loss, grads, _), secs, launches = timed(
+            lambda: unclamped_loss_grads(gdata, cam, target, cfg))
     want, secs_w, _ = graphed_walls(
         lambda: render_loss_grad_image(gdata, cam, target, cfg=cfg))
     agree = same_loss_grads_as(what, (loss, grads), want)
@@ -2689,6 +2709,215 @@ def diff_forward(report: dict, dev: str, tess: int = 10,
             step_s=step, first_loss=losses[0], last_loss=losses[-1])
     print("diff summary: " + json.dumps(summary))
     print(f"diff: phase 24 took {time.perf_counter() - t0:.2f} s")
+
+
+#: phase 25: eager/graphed pairs of render(clamp=False) under autograd, on
+#: office and on each golden
+DIFF_PAIRS, DIFF_GOLDEN_PAIRS = 10, 5
+
+
+def graphed_diff_vs_eager(what: str, fn, nodes: int = 0, skipped: int = 0,
+                          pairs: int = DIFF_PAIRS) -> tuple:
+    """``fn`` (unclamped_loss_grads) eagerly (disable_graphs) and graphed
+    from an empty cache: its first call the warm-up, its second the
+    capture of the forward and the backward graph with ``nodes`` IF nodes
+    in all, its third a replay of both, with ``skipped`` bodies skipped,
+    launching what the eager call launches (no kernel more often with IF
+    nodes). Its image must equal eager's bit for bit, the loss within
+    GRAPH_LOSS_RTOL and every gradient within REL_GRAD x max|eager| (phase
+    23's bars). Then timed in turns. Returns (the replay's (loss, grads,
+    image), the eager one's, the results with the launches per call)."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import graphs
+
+    graphs.clear()
+    with graphs.disable_graphs():
+        eager, l_eager, moved = launches_of(fn)
+    check(not any(moved.values()), f"{what}: an eager call used a graph")
+    _, _, warm = launches_of(fn)
+    _, _, cap = launches_of(fn)
+    got, l_graph, moved = launches_of(fn)
+    check(warm["warm_ups"] == 1 and cap["captures"] == 1
+          and cap["backward_captures"] == 1 and cap["replays"] == 1
+          and cap["backward_replays"] == 1, f"{what}: the first two calls "
+          f"were not the warm-up and the capture of both graphs: {warm}, "
+          f"{cap}")
+    check(moved["replays"] == 1 and moved["backward_replays"] == 1
+          and moved["warm_ups"] == moved["captures"] == 0
+          and moved["pending_eager"] == 0, f"{what}: the third call did "
+          f"not replay the forward and the backward graph: {moved}")
+    ran, skip = moved["bodies_run"], moved["bodies_skipped"]
+    check(cap["if_nodes"] == nodes == ran + skip and skip == skipped,
+          f"{what}: {cap['if_nodes']} IF nodes, bodies run {ran} and "
+          f"skipped {skip} per replay, where {nodes} nodes and {skipped} "
+          f"skipped were due")
+    if nodes:
+        check(set(l_graph) <= set(l_eager) and all(
+            n <= l_eager[k] for k, n in l_graph.items()),
+            f"{what}: launches graphed {l_graph}, eager {l_eager}")
+    else:
+        check(l_graph == l_eager, f"{what}: launches graphed {l_graph}, "
+              f"eager {l_eager}")
+    (loss, grads, img), (loss_e, grads_e, img_e) = got, eager
+    check(torch.equal(img, img_e), f"{what}: graphed image differs from "
+          f"eager by {float((img - img_e).abs().max())}")
+    agree = same_loss_grads(what)((loss, grads), (loss_e, grads_e))
+    print(f"graphs {what}: image bit-equal to eager; {agree}; IF nodes "
+          f"{nodes}, bodies per replay run {ran} and skipped {skip}; "
+          f"launches per call graphed {l_graph}, eager {l_eager}")
+    return got, eager, dict(in_turns(fn, fn, pairs), launches=l_graph,
+                            eager_launches=l_eager, if_nodes=nodes,
+                            bodies_run=ran, bodies_skipped=skip)
+
+
+def pending_rule(what, data, camera, target, cfg) -> dict:
+    """Two forwards of one key (two cameras of one size), then one
+    backward of a loss over both: the second forward runs eagerly, and
+    the loss and gradients meet phase 23's bars against the all-eager
+    call. Then an output dropped without its backward frees the key: the
+    next forward replays."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from myraytracer_tpu_torch import merge_params, split_params
+    from myraytracer_tpu_torch.ops import graphs
+    from myraytracer_tpu_torch.ops.render import render
+
+    moved_cam = dataclasses.replace(camera, eye=camera.eye + 0.05)
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in split_params(data).items()}
+
+    def both():
+        scene = merge_params(data, params)
+        a = render(scene, camera, cfg=cfg, clamp=False)
+        b = render(scene, moved_cam, cfg=cfg, clamp=False)
+        loss = torch.sum((a - target) ** 2) + 0.5 * torch.sum(
+            (b - target) ** 2)
+        got = torch.autograd.grad(loss, list(params.values()),
+                                  allow_unused=True)
+        return loss.detach(), {k: torch.zeros_like(params[k]) if g is None
+                               else g for k, g in zip(params, got)}
+
+    with graphs.disable_graphs():
+        want = both()
+    before = dict(graphs.COUNTS)
+    got = both()
+    moved = {k: graphs.COUNTS[k] - before[k] for k in before}
+    check(moved["replays"] == 1 and moved["pending_eager"] == 1
+          and moved["backward_replays"] == 1 and moved["captures"] == 0,
+          f"{what}: two forwards then one backward made {moved}")
+    agree = same_loss_grads(what)(got, want)
+    scene = merge_params(data, params)
+    img = render(scene, camera, cfg=cfg, clamp=False)
+    entry = next(e for e in graphs._CACHE.values() if e.backward is not None)
+    check(graphs._pending(entry), f"{what}: a replayed forward is not "
+          f"pending")
+    del img
+    gc.collect()
+    before = dict(graphs.COUNTS)
+    render(scene, camera, cfg=cfg, clamp=False)
+    moved_drop = {k: graphs.COUNTS[k] - before[k] for k in before}
+    check(moved_drop["replays"] == 1 and moved_drop["pending_eager"] == 0,
+          f"{what}: after a dropped output the forward made {moved_drop}")
+    print(f"graphs {what}: two forwards then one backward: the second ran "
+          f"eagerly ({moved['pending_eager']}), {agree} against all-eager; "
+          f"a dropped output freed the key (the next forward replayed)")
+    return {"pending_eager": moved["pending_eager"]}
+
+
+def graphed_diff(report: dict, dev: str, tess: int = 10,
+                 full=(1920, 1080)) -> None:
+    """Phase 25: render(clamp=False) under autograd replayed as a forward
+    and a backward graph, against eager (disable_graphs) and the graphed
+    training step: office 1080p on "cluster" and "auto" (each path
+    kernel launched once per replayed call; those counts become each
+    kernel's ``diff_launches``; the pending rule; reserved memory;
+    device busy), o_04 (IF nodes in both graphs; loss and gradients to
+    the bit) and o_10 with "bilinear"."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import graphs
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.render import render, render_loss_grad_image
+    from myraytracer_tpu_torch.scenes.golden import (GOLDEN_SCENES,
+                                                     scene_08_office)
+
+    t0 = time.perf_counter()
+    summary = {}
+    scene = scene_08_office(tess=tess, resolution=full)
+    data, camera = scene.build(device=dev), scene.camera
+    where = f"office {full[0]}x{full[1]}"
+    for method in ("cluster", "auto"):
+        cfg = tr.TraceConfig(tri_method=method)
+        target = 0.9 * render(data, camera, cfg=cfg) + 0.02
+        what = f"diff {where} {method}"
+
+        def fn():
+            return unclamped_loss_grads(data, camera, target, cfg)
+        (loss, grads, _), _, r = graphed_diff_vs_eager(what, fn)
+        kernels = (FWD_KERNELS if method == "cluster" else BVH_FWD_KERNELS
+                   ) + ("seg_fwd", "seg_bwd")
+        check(r["launches"] == {k: 1 for k in kernels}, f"{what}: launches "
+              f"per replayed call {r['launches']}, not one of each of "
+              f"{kernels}")
+        for k in kernels:
+            report[k]["diff_launches"] = r["launches"][k]
+        want, secs_w, _ = graphed_walls(
+            lambda: render_loss_grad_image(data, camera, target, cfg=cfg))
+        vs_step = same_loss_grads_as(f"{what} vs the training step",
+                                     (loss, grads), want)
+        r["step_graphed_ms"] = 1e3 * statistics.median(secs_w)
+        print(f"graphs {what} vs graphed render_loss_grad_image (median "
+              f"{r['step_graphed_ms']:.3f} ms of three): {vs_step}")
+        if method == "cluster":
+            r.update(pending_rule(f"{what} pending", data, camera, target,
+                                  cfg))
+            r["memory_gib"] = step_memory(fn)
+            print(f"graphs {what}: memory, GiB: {r['memory_gib']}")
+        add_busy(f"diff {where}", {method: r}, {method: fn})
+        summary[f"office_{method}"] = r
+        del target, loss, grads, want
+    del data
+    graphs.clear()
+
+    for name, filt, nodes, skipped in (("o_04_molecule", "nearest", 6, 3),
+                                       ("o_10_pokemon", "bilinear", 0, 0)):
+        builder, _ = GOLDEN_SCENES[name]
+        sc = builder()
+        gdata, cam = sc.build(device=dev), sc.camera
+        cfg = tr.TraceConfig(texture_filter=filt)
+        target = 0.9 * render(gdata, cam) + 0.02
+        what = f"diff {name} {cam.width}x{cam.height} {filt}"
+
+        def fn(d=gdata, c=cam, t=target, k=cfg):
+            return unclamped_loss_grads(d, c, t, k)
+        got, eager, r = graphed_diff_vs_eager(what, fn, nodes, skipped,
+                                              DIFF_GOLDEN_PAIRS)
+        if nodes:
+            sites = graphs.body_sites("render")
+            print(f"graphs {what}: bodies skipped per replay "
+                  f"{[site for site, ran in sites if not ran]}")
+            check(torch.equal(got[0], eager[0]) and all(
+                torch.equal(got[1][k], eager[1][k]) for k in eager[1]),
+                f"{what}: loss or gradients differ from eager's bits")
+            print(f"graphs {what}: loss and 23 gradients equal to eager's "
+                  f"to the bit")
+        want, secs_w, _ = graphed_walls(
+            lambda: render_loss_grad_image(gdata, cam, target, cfg=cfg))
+        vs_step = same_loss_grads_as(f"{what} vs the training step",
+                                     got[:2], want)
+        r["step_graphed_ms"] = 1e3 * statistics.median(secs_w)
+        print(f"graphs {what} vs graphed render_loss_grad_image (median "
+              f"{r['step_graphed_ms']:.3f} ms of three): {vs_step}")
+        add_busy(f"diff {name}", {filt: r}, {filt: fn}, reps=1)
+        summary[name] = r
+        del gdata, target, got, eager, want
+        graphs.clear()
+    print("graphs diff summary: " + json.dumps(summary))
+    print(f"graphs: phase 25 took {time.perf_counter() - t0:.2f} s")
 
 
 def build_gallery(dev):
@@ -2799,7 +3028,8 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     native_builder(dev)
     inverse_demo()
     graphed_paths(dev, tess, full)
-    diff_forward(report, dev, tess, full)
+    diff_forward(dev, tess, full)
+    graphed_diff(report, dev, tess, full)
     return report
 
 

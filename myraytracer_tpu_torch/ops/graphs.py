@@ -58,18 +58,40 @@ conditional segment under a CUDA-graph IF node (:func:`if_node`):
 
   autograd  a call that records autograd (``render(clamp=False)`` on a
             scene or camera whose tensors require grad, with grad mode
-            on) runs eagerly, by rule: a replay returns copies of the
-            graph's output buffers, which carry no autograd graph. The
-            caller decides it from its arguments before the call
-            (``records_grad``, :func:`runs_eagerly`), so such a call never
-            makes a key or a cache entry.
+            on; the caller says so: ``records_grad``) replays two graphs,
+            the counterparts of the reference's compiled forward and its
+            compiled transpose: the forward, whose autograd residuals stay
+            in the entry's memory, and the backward,
+            ``torch.autograd.grad`` of the forward's outputs, given their
+            cotangents, with respect to every staged and held input that
+            requires grad. One autograd Function joins them, so the
+            caller's own loss and optimizer run between them, eagerly.
+            The key holds which staged and held inputs require grad (an
+            optimizer's in-place update keeps it, a new set of leaves
+            makes another). The warm-up returns an ordinary autograd
+            result; the second call captures the forward, then the
+            backward in the forward's memory pool (IF nodes' bodies of
+            both draw on one pool that lives as long as the entry), and
+            replays the forward. Three rules, decided before each call:
+            (a) pending: a forward of a key whose last replayed forward
+            still awaits its backward (its output is alive and its
+            backward has not run) runs eagerly, counted in
+            ``COUNTS["pending_eager"]``, since a replay would overwrite
+            the residuals that backward reads; an output that dies
+            without a backward releases the key. (b) The LRU never evicts
+            an entry with a pending backward. (c) A second backward of one
+            forward (``retain_graph=True``) replays the backward graph
+            again and gives the same gradients; once a later forward of
+            the key has replayed, it raises. ``create_graph=True`` raises:
+            the graphs are differentiable once.
 
 :func:`disable_graphs` runs every entry point eagerly, the counterpart of
 ``jax.disable_jit()``; it is the only eager switch for CUDA tensors
-apart from the backend and autograd rules above. Tensors on the CPU
-always run eagerly. A capture that fails raises
-:class:`GraphCaptureError`, naming the entry point and the line that
-failed; no call is retried eagerly.
+apart from the backend rule and the pending rule above. Tensors on the
+CPU always run eagerly. A capture that fails raises
+:class:`GraphCaptureError`, naming the entry point (and ``forward`` or
+``backward`` of a differentiable one) and the line that failed; no call
+is retried eagerly.
 """
 
 from __future__ import annotations
@@ -79,6 +101,7 @@ import contextlib
 import dataclasses
 import os
 import traceback
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -119,33 +142,55 @@ class _Recording:
 
 
 @dataclasses.dataclass
+class _Graph:
+    """One captured region."""
+
+    graph: Any                          # torch.cuda.CUDAGraph
+    launches: Dict[str, int]            # per replay, outside IF nodes
+    bodies: List[_Body]                 # its IF nodes' bodies
+
+
+@dataclasses.dataclass
 class _Entry:
+    device: torch.device
     held: tuple                         # tensors read in place
     staged: tuple                       # device buffers of staged inputs
-    graph: Any = None                   # torch.cuda.CUDAGraph once captured
-    outputs: Any = None                 # the graph's static outputs
-    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
-    bodies: List[_Body] = dataclasses.field(default_factory=list)
+    forward: Optional[_Graph] = None    # the region (or its forward)
+    backward: Optional[_Graph] = None   # a differentiable region's backward
+    outputs: Any = None                 # the forward's static outputs
     body_pool: Optional[tuple] = None   # the IF nodes' bodies' memory
+    # a differentiable region: the static cotangents of the outputs that
+    # require grad (by index) and the backward's static gradients of the
+    # staged buffers and held tensors that require grad (None where one
+    # takes none)
+    cot_index: tuple = ()
+    cotangents: tuple = ()
+    grads: tuple = ()
+    #: the context of the replayed forward whose backward has not run
+    pending: Optional[weakref.ref] = None
+    #: forward replays so far: a backward of an older one finds its
+    #: residuals overwritten
+    generation: int = 0
 
 
 _CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
 #: calls of :func:`run` on a CUDA device so far, by what they did: the
 #: eager warm-up of a new key, a capture (followed by its first replay),
 #: a replay (captures included); the IF nodes that the captures made
-#: (one per conditional segment); and the IF nodes' bodies that ran and
-#: that were skipped in the last replay of each key that
-#: :func:`count_bodies` counted
+#: (one per conditional segment); the IF nodes' bodies that ran and that
+#: were skipped in the last replay of each key that :func:`count_bodies`
+#: counted; and of differentiable regions, the captures and replays of
+#: the backward graph and the forwards run eagerly by the pending rule
 COUNTS = {"warm_ups": 0, "captures": 0, "replays": 0, "if_nodes": 0,
-          "bodies_run": 0, "bodies_skipped": 0}
+          "bodies_run": 0, "bodies_skipped": 0, "backward_captures": 0,
+          "backward_replays": 0, "pending_eager": 0}
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 #: the streams that IF nodes' bodies are captured on
 _BODY_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 #: the capture in progress in :func:`run`, else None
 _RECORDING: Optional[_Recording] = None
-#: keys replayed since :func:`count_bodies` last ran, whose graphs hold
-#: IF nodes
-_UNCOUNTED: Dict[int, _Entry] = {}
+#: graphs replayed since :func:`count_bodies` last ran that hold IF nodes
+_UNCOUNTED: Dict[int, _Graph] = {}
 #: the sites of the IF nodes whose bodies are being recorded, innermost
 #: last
 _BODY_SITES: List[str] = []
@@ -175,7 +220,7 @@ def cache_size() -> int:
 
 def captured() -> int:
     """Keys in the cache whose graph has been captured."""
-    return sum(e.graph is not None for e in _CACHE.values())
+    return sum(e.forward is not None for e in _CACHE.values())
 
 
 def clear() -> None:
@@ -185,14 +230,31 @@ def clear() -> None:
 
 
 def _release(entry: _Entry) -> None:
-    if entry.graph is not None:
-        entry.graph.reset()
+    for g in (entry.forward, entry.backward):
+        if g is not None:
+            g.graph.reset()
+            _UNCOUNTED.pop(id(g), None)
     if entry.body_pool is not None:
-        torch._C._cuda_releasePool(entry.bodies[0].pred.device.index,
-                                   entry.body_pool)
-    entry.graph = entry.outputs = entry.body_pool = None
-    entry.bodies = []
-    _UNCOUNTED.pop(id(entry), None)
+        torch._C._cuda_releasePool(entry.device.index, entry.body_pool)
+    entry.forward = entry.backward = entry.outputs = entry.body_pool = None
+    entry.cotangents = entry.grads = ()
+    entry.pending = None
+
+
+def _pending(entry: _Entry) -> bool:
+    """Does the last replayed forward of a differentiable entry still
+    await its backward (its output alive, its backward not run)?"""
+    return entry.pending is not None and entry.pending() is not None
+
+
+def _evict() -> None:
+    """Release the least recently used keys until one more fits, passing
+    over every entry with a pending backward."""
+    for key in list(_CACHE):
+        if len(_CACHE) < MAX_GRAPHS:
+            return
+        if not _pending(_CACHE[key]):
+            _release(_CACHE.pop(key))
 
 
 def tensor_key(t: torch.Tensor) -> tuple:
@@ -214,25 +276,27 @@ def scene_inputs(scene) -> tuple:
 
 
 def make_key(name: str, static, held: Sequence[torch.Tensor],
-             staged: Sequence[torch.Tensor], group=None) -> tuple:
+             staged: Sequence[torch.Tensor], group=None,
+             records_grad: bool = False) -> tuple:
     """The cache key of a call of :func:`run` (see the module docstring);
     of a process group it records the backend, this rank's index, the
-    size and the group object."""
+    size and the group object; of a call that records autograd, which
+    staged and held inputs require grad."""
     return (name, static, tuple(tensor_key(t) for t in held),
             tuple((tuple(s.shape), s.dtype) for s in staged),
+            (tuple(s.requires_grad for s in staged),
+             tuple(t.requires_grad for t in held)) if records_grad else None,
             None if group is None else (
                 dist.get_backend(group), dist.get_rank(group),
                 dist.get_world_size(group), group))
 
 
-def runs_eagerly(device, group=None, records_grad: bool = False) -> bool:
-    """Does :func:`run` call its region eagerly? On the CPU, inside
-    :func:`disable_graphs`, for a process group whose backend is not
-    NCCL (its collectives cannot be captured), and for a call that
-    records autograd (a replay's outputs carry no autograd graph)."""
+def runs_eagerly(device, group=None) -> bool:
+    """Does :func:`run` call its region eagerly, whatever the key? On the
+    CPU, inside :func:`disable_graphs`, and for a process group whose
+    backend is not NCCL (its collectives cannot be captured)."""
     return (torch.device(device).type != "cuda" or _disabled > 0
-            or (group is not None and dist.get_backend(group) != "nccl")
-            or records_grad)
+            or (group is not None and dist.get_backend(group) != "nccl"))
 
 
 def run(name: str, fn: Callable, device, static=(),
@@ -246,53 +310,170 @@ def run(name: str, fn: Callable, device, static=(),
     tensor or a tuple, list or dict of tensors (None and numbers pass
     through). ``static`` is the hashable rest of the key; ``group`` the
     process group of the collectives ``fn`` makes, if any;
-    ``records_grad`` whether the caller's autograd records the call.
+    ``records_grad`` whether the caller's autograd records the call: then
+    ``fn`` returns a tensor or a tuple of tensors, and the call replays a
+    forward and a backward graph joined by one autograd Function
+    (differentiable in the staged and held inputs that require grad).
     Where :func:`runs_eagerly` holds, ``fn`` runs eagerly with the staged
     inputs moved to ``device``.
     """
     device = torch.device(device)
-    if runs_eagerly(device, group, records_grad):
+    if runs_eagerly(device, group):
         return fn(*(s.to(device) for s in staged))
-    if device.index is None:
+    if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = make_key(name, static, held, staged, group)
+    key = make_key(name, static, held, staged, group, records_grad)
     entry = _CACHE.get(key)
     if entry is None:
-        entry = _Entry(held=tuple(held), staged=tuple(
+        entry = _Entry(device, tuple(held), tuple(
             torch.empty(s.shape, dtype=s.dtype, device=device)
+            .requires_grad_(records_grad and s.requires_grad)
             for s in staged))
-        _stage(entry, staged)
-        out = _warm_up(fn, entry, device)
+        if records_grad:
+            # an ordinary autograd result, reaching the caller's inputs
+            out = _warm_up(lambda: fn(*(s.to(device) for s in staged)),
+                           device)
+        else:
+            _stage(entry, staged)
+            out = _warm_up(lambda: fn(*entry.staged), device)
         COUNTS["warm_ups"] += 1
-        while len(_CACHE) >= MAX_GRAPHS:
-            _release(_CACHE.popitem(last=False)[1])
+        _evict()
         _CACHE[key] = entry
         return out
     _CACHE.move_to_end(key)
+    if records_grad:
+        return _run_grad(name, fn, entry, held, staged, group is not None)
     _stage(entry, staged)
-    if entry.graph is None:
-        _capture(name, fn, entry, device, group is not None)
+    if entry.forward is None:
+        def region():
+            entry.outputs = fn(*entry.staged)
+        entry.forward, entry.body_pool = _capture(name, region, device,
+                                                  group is not None)
         COUNTS["captures"] += 1
-    entry.graph.replay()
+    _replay(entry.forward)
     COUNTS["replays"] += 1
-    for k, n in entry.launches.items():
-        _build.LAUNCHES[k] += n
-    if entry.bodies:
-        _UNCOUNTED[id(entry)] = entry
     return _clone(entry.outputs)
+
+
+def _flat(outputs) -> tuple:
+    return outputs if isinstance(outputs, tuple) else (outputs,)
+
+
+def _run_grad(name: str, fn: Callable, entry: _Entry, held, staged,
+              collective: bool):
+    """A call of a differentiable region after its warm-up: eagerly by
+    the pending rule, else (capturing both graphs first) a replay of the
+    forward through :class:`_Differentiable`, whose gradients reach this
+    call's staged and held tensors (the key's addresses: the graphs read
+    their memory)."""
+    if _pending(entry):
+        COUNTS["pending_eager"] += 1
+        return fn(*(s.to(entry.device) for s in staged))
+    if entry.forward is None:
+        _capture_grad(name, fn, entry, held, staged, collective)
+    return _Differentiable.apply(entry, len(staged), *staged,
+                                 *(t for t in held if t.requires_grad))
+
+
+def _capture_grad(name: str, fn: Callable, entry: _Entry, held, staged,
+                  collective: bool) -> None:
+    """Capture a differentiable region's forward, then its backward in
+    the forward's memory pool, their IF nodes' bodies sharing one pool.
+    The backward differentiates with respect to the tensors that this
+    call's ``fn`` reads, held from then on. Either failure releases both
+    and raises."""
+    _stage(entry, staged)
+    entry.held = tuple(held)
+    inputs = tuple(b for b in entry.staged if b.requires_grad) + tuple(
+        t for t in entry.held if t.requires_grad)
+
+    def forward():
+        entry.outputs = fn(*entry.staged)
+
+    def backward():
+        outs = _flat(entry.outputs)
+        # the residuals are kept: the next replay of this graph (a
+        # second backward) reads them again
+        entry.grads = torch.autograd.grad(
+            [outs[i] for i in entry.cot_index], inputs, entry.cotangents,
+            retain_graph=True, allow_unused=True)
+
+    try:
+        entry.forward, entry.body_pool = _capture(
+            f"{name} (forward)", forward, entry.device, collective)
+        outs = _flat(entry.outputs)
+        entry.cot_index = tuple(i for i, o in enumerate(outs)
+                                if o.requires_grad)
+        entry.cotangents = tuple(torch.zeros_like(outs[i])
+                                 for i in entry.cot_index)
+        entry.backward, entry.body_pool = _capture(
+            f"{name} (backward)", backward, entry.device, collective,
+            pool=entry.forward.graph.pool(), body_pool=entry.body_pool)
+    except GraphCaptureError:
+        _release(entry)
+        raise
+    COUNTS["captures"] += 1
+    COUNTS["backward_captures"] += 1
+
+
+class _Differentiable(torch.autograd.Function):
+    """A differentiable region's replays: ``apply(entry, n_staged,
+    *staged, *held that require grad)`` stages the inputs, replays the
+    forward graph and returns clones of its outputs; the backward copies
+    the cotangents into the entry's buffers, replays the backward graph
+    and returns clones of the gradients (None where an input takes
+    none), each on its input's device."""
+
+    @staticmethod
+    def forward(ctx, entry: _Entry, n_staged: int, *inputs):
+        _stage(entry, inputs[:n_staged])
+        _replay(entry.forward)
+        COUNTS["replays"] += 1
+        entry.generation += 1
+        entry.pending = weakref.ref(ctx)
+        ctx.entry, ctx.generation = entry, entry.generation
+        ctx.devices = [x.device for x in inputs]
+        return _clone(entry.outputs)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        entry = ctx.entry
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "a graphed differentiable region has no double backward "
+                "(create_graph=True); run it under disable_graphs()")
+        if entry.backward is None or ctx.generation != entry.generation:
+            raise RuntimeError(
+                "the backward graph of this output's forward was released "
+                "or a later forward of its key has replayed over its "
+                "residuals: a second backward (retain_graph=True) must "
+                "come before the key's next call")
+        for buf, i in zip(entry.cotangents, entry.cot_index):
+            buf.copy_(cots[i])
+        _replay(entry.backward)
+        COUNTS["backward_replays"] += 1
+        entry.pending = None
+        # the key holds which inputs require grad: entry.grads follows
+        # the inputs that do, in order
+        grads = iter(entry.grads)
+        out = [None, None]
+        for takes, device in zip(ctx.needs_input_grad[2:], ctx.devices):
+            g = next(grads) if takes else None
+            out.append(None if g is None else g.to(device, copy=True))
+        return tuple(out)
 
 
 def count_bodies() -> Tuple[int, int]:
     """Add to ``LAUNCHES`` the launches of the IF nodes' bodies that ran
-    in the last replay of each key replayed since the last call, and
+    in the last replay of each graph replayed since the last call, and
     return how many bodies ran and were skipped there (also added to
     :data:`COUNTS`). It synchronises the card and reads each body's
     condition, so it is never called on a replay's path."""
     ran = skipped = 0
-    for entry in _UNCOUNTED.values():
-        torch.cuda.synchronize(entry.bodies[0].pred.device)
-        taken = torch.stack([b.pred for b in entry.bodies]).tolist()
-        for body, took in zip(entry.bodies, taken):
+    for g in _UNCOUNTED.values():
+        torch.cuda.synchronize(g.bodies[0].pred.device)
+        taken = torch.stack([b.pred for b in g.bodies]).tolist()
+        for body, took in zip(g.bodies, taken):
             if took:
                 for k, n in body.launches.items():
                     _build.LAUNCHES[k] += n
@@ -306,24 +487,27 @@ def count_bodies() -> Tuple[int, int]:
 
 def body_sites(name: Optional[str] = None) -> List[Tuple[str, bool]]:
     """(site, ran) of every IF node's body in the last replay of each
-    captured key (of the entry point ``name`` only, if given), in capture
-    order. It synchronises the card and reads each body's condition, so
-    it is never called on a replay's path."""
+    captured graph (of the entry point ``name`` only, if given), in
+    capture order, a differentiable region's forward before its
+    backward. It synchronises the card and reads each body's condition,
+    so it is never called on a replay's path."""
     out = []
     for key, entry in _CACHE.items():
-        if entry.graph is not None and entry.bodies and (
-                name is None or key[0] == name):
-            torch.cuda.synchronize(entry.bodies[0].pred.device)
-            taken = torch.stack([b.pred for b in entry.bodies]).tolist()
-            out += [(b.site, took) for b, took in zip(entry.bodies, taken)]
+        for g in (entry.forward, entry.backward):
+            if g is not None and g.bodies and (name is None
+                                               or key[0] == name):
+                torch.cuda.synchronize(g.bodies[0].pred.device)
+                taken = torch.stack([b.pred for b in g.bodies]).tolist()
+                out += [(b.site, took) for b, took in zip(g.bodies, taken)]
     return out
 
 
 def _stage(entry: _Entry, staged) -> None:
     """Copy each staged input into its buffer, on the current stream
     (ordered after the last replay that read the buffer)."""
-    for buf, src in zip(entry.staged, staged):
-        buf.copy_(src, non_blocking=True)
+    with torch.no_grad():
+        for buf, src in zip(entry.staged, staged):
+            buf.copy_(src, non_blocking=True)
 
 
 def _stream(streams: dict, device: torch.device) -> torch.cuda.Stream:
@@ -332,15 +516,23 @@ def _stream(streams: dict, device: torch.device) -> torch.cuda.Stream:
     return streams[device]
 
 
-def _warm_up(fn: Callable, entry: _Entry, device: torch.device):
-    """The eager first call of a key, on a side stream."""
+def _warm_up(call: Callable, device: torch.device):
+    """``call()``, the eager first call of a key, on a side stream."""
     cur = torch.cuda.current_stream(device)
     side = _stream(_SIDE_STREAMS, device)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
-        out = fn(*entry.staged)
+        out = call()
     cur.wait_stream(side)
     return out
+
+
+def _replay(g: _Graph) -> None:
+    g.graph.replay()
+    for k, n in g.launches.items():
+        _build.LAUNCHES[k] += n
+    if g.bodies:
+        _UNCOUNTED[id(g)] = g
 
 
 def _failure_site(exc: BaseException) -> str:
@@ -361,25 +553,36 @@ def _failure_site(exc: BaseException) -> str:
     return f"{at}: {type(exc).__name__}: {exc}"
 
 
-def _capture(name: str, fn: Callable, entry: _Entry, device: torch.device,
-             collective: bool = False) -> None:
-    """Capture ``fn`` into the entry's graph; the launches its kernel
-    wrappers count during the capture outside IF nodes become the count
-    of one replay, those inside each node its body's count. A region with
-    a ``collective`` is captured in the thread-local mode: the process
-    group's watchdog thread queries the events of eager collectives (a
-    warm-up's all-reduce, a checkpoint's barrier), which under the global
-    mode could invalidate the capture from that thread."""
+def _record(region: Callable[[], None], pool, mode: str):
+    """``region()`` captured into a new CUDA graph (in the memory pool
+    ``pool``, a new one if None)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
+        region()
+    return graph
+
+
+def _capture(name: str, region: Callable[[], None], device: torch.device,
+             collective: bool = False, pool=None,
+             body_pool: Optional[tuple] = None
+             ) -> Tuple[_Graph, Optional[tuple]]:
+    """Capture ``region()`` (which stores its results in the entry) ->
+    (the graph, the IF nodes' bodies' pool: ``body_pool`` or one made
+    here, or None). The launches its kernel wrappers count during the
+    capture outside IF nodes become the count of one replay, those inside
+    each node its body's count. A region with a ``collective`` is
+    captured in the thread-local mode: the process group's watchdog
+    thread queries the events of eager collectives (a warm-up's
+    all-reduce, a checkpoint's barrier), which under the global mode
+    could invalidate the capture from that thread."""
     global _RECORDING
     before = dict(_build.LAUNCHES)
-    graph = torch.cuda.CUDAGraph()
-    rec = _RECORDING = _Recording(device)
+    rec = _RECORDING = _Recording(device, body_pool)
     try:
-        with torch.cuda.graph(graph, capture_error_mode=(
-                "thread_local" if collective else "global")):
-            out = fn(*entry.staged)
+        graph = _record(region, pool,
+                        "thread_local" if collective else "global")
     except Exception as e:
-        if rec.pool is not None:
+        if rec.pool is not None and rec.pool is not body_pool:
             torch._C._cuda_releasePool(rec.device.index, rec.pool)
         raise GraphCaptureError(
             f"graph capture of {name} failed at {_failure_site(e)}. The "
@@ -391,10 +594,9 @@ def _capture(name: str, fn: Callable, entry: _Entry, device: torch.device,
         _RECORDING = None
         counted = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
         _build.LAUNCHES.update(before)
-    entry.graph, entry.outputs = graph, out
-    entry.launches = {k: v for k, v in counted.items() if v}
-    entry.bodies, entry.body_pool = rec.bodies, rec.pool
     COUNTS["if_nodes"] += len(rec.bodies)
+    return _Graph(graph, {k: v for k, v in counted.items() if v},
+                  rec.bodies), rec.pool
 
 
 def if_body_site() -> Optional[str]:
@@ -429,9 +631,10 @@ def if_node(pred: torch.Tensor, body: Callable[[], Any], site: str) -> None:
     node is reached; else the tensors that the body writes in place keep
     what they held. The body may launch kernels, copies and fills on
     device memory, and allocate: its blocks come from a pool of its own,
-    which the bodies of one graph share and which lives as long as the
-    graph, so it must copy every result that later nodes read into a
-    tensor allocated before the node. Its launches are counted apart
+    which the bodies of one entry's graphs share (a differentiable
+    region's backward bodies read the residuals its forward bodies keep)
+    and which lives as long as the entry, so it must copy every result
+    that later nodes read into a tensor allocated before the node. Its launches are counted apart
     (:func:`count_bodies`). The node is made by ``csrc/graph_cond.cu``
     (``cudaGraphAddNode`` of a conditional node, set on the device by
     ``cudaGraphSetConditional``). Any failure raises

@@ -29,12 +29,18 @@ same graph. ``graphs.disable_graphs()`` runs them eagerly; CPU tensors
 always do.
 
 ``render(clamp=False)`` is differentiable, as the reference's is: under
-autograd its trace takes the replay route (``tracer.replays``) and the
-call runs eagerly, by rule (``graphs.runs_eagerly``). The forward-only
-entry points (``render(clamp=True)``, ``render_aa`` and the sharded
-forwards) trace under ``torch.no_grad()`` with the nearest texel
-(:func:`forward_only`), the counterpart of the reference's
-``fused_shade=True``, so they keep the K3/K4 chain and their graphs.
+autograd its trace takes the replay route (``tracer.replays``), and on
+the card the call replays two graphs, the counterparts of the
+reference's jitted forward and its transpose: a forward graph (the
+topology pass and the shading replay of every tile, with the autograd
+residuals kept) and a backward graph, which writes the gradient of every
+scene and camera tensor that requires grad from the image's cotangent
+(``graphs.run(..., records_grad=True)``). The caller's loss and
+optimizer run between them. The forward-only entry points
+(``render(clamp=True)``, ``render_aa`` and the sharded forwards) trace
+under ``torch.no_grad()`` with the nearest texel (:func:`forward_only`),
+the counterpart of the reference's ``fused_shade=True``, so they keep
+the K3/K4 chain.
 """
 
 from __future__ import annotations
@@ -133,8 +139,8 @@ def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
     tensors and ``held`` read in place, the camera (packed) and
     ``staged`` copied into the graph's buffers, keyed by the scene's
     static fields, the camera's size, ``static`` and the process
-    ``group`` of a sharded entry point; eagerly where ``records_grad``
-    (autograd records the call)."""
+    ``group`` of a sharded entry point; a forward and a backward graph
+    where ``records_grad`` (autograd records the call)."""
     W, H = camera.width, camera.height
     scene_static, scene_held = graphs.scene_inputs(scene)
 
@@ -161,8 +167,13 @@ def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     with :func:`forward_only`'s nearest texel. ``clamp=False`` is
     differentiable in every scene tensor and the camera: where autograd
     records the call (``tracer.records_grad``) each tile takes the replay
-    route, the image carries the autograd graph and the call runs
-    eagerly, by rule; without it the call replays its graph.
+    route and the image carries the autograd graph. On the card that
+    call replays a forward graph of every tile and, at the image's
+    backward, a backward graph (``graphs.run``'s differentiable region:
+    the scene's tensors read in place, the camera staged, which of them
+    require grad part of the key). A forward of the key whose previous
+    image still awaits its backward runs eagerly. Without autograd the
+    call replays one graph.
     """
     if clamp:
         cfg = forward_only(cfg)

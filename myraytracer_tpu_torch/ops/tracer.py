@@ -612,15 +612,18 @@ class _CondSegment(torch.autograd.Function):
 
     Under a graph capture the forward runs ``seg.fwd`` in a CUDA-graph IF
     node on ``pred`` (:func:`_branch`), and the backward runs the
-    segment's VJP in a second IF node on the same condition. Where the
-    nodes skip, the outputs are the carry and the cotangents a dead
-    segment's: the carry's own cotangents unchanged, zero for every other
-    tensor (the VJP of ``lax.cond``'s identity branch), so a dead segment
-    costs nothing forward or backward. Eagerly both run and a select keeps
-    or drops their results, so the two modes group the gradient sums
-    alike. Every tensor the segment reads with a gradient is one of
-    ``tensors``: one that ``seg.fwd`` only closed over would lose its
-    gradient.
+    segment's VJP in a second IF node on the same condition, captured
+    with the forward's graph or, for a differentiable region
+    (``graphs.run(..., records_grad=True)``), into its backward graph:
+    from the autograd engine's thread, on the stream the forward ran on,
+    which that capture holds. Where the nodes skip, the outputs are the
+    carry and the cotangents a dead segment's: the carry's own cotangents
+    unchanged, zero for every other tensor (the VJP of ``lax.cond``'s
+    identity branch), so a dead segment costs nothing forward or
+    backward. Eagerly both run and a select keeps or drops their
+    results, so the two modes group the gradient sums alike. Every
+    tensor the segment reads with a gradient is one of ``tensors``: one
+    that ``seg.fwd`` only closed over would lose its gradient.
     """
 
     @staticmethod
@@ -668,9 +671,13 @@ class _CondSegment(torch.autograd.Function):
                               for x, n in zip(inputs, need)]
                     outs = seg.fwd(*leaves)
             live = [(y, g) for y, g in zip(outs, cots) if y.requires_grad]
+            # a kept graph stays: a second backward (retain_graph, or a
+            # backward graph replayed again) reads its residuals again
             got = torch.autograd.grad([y for y, _ in live],
                                       [leaves[i] for i in idx],
-                                      [g for _, g in live], allow_unused=True)
+                                      [g for _, g in live],
+                                      retain_graph=seg.keep,
+                                      allow_unused=True)
             return [torch.zeros_like(leaves[i]) if g is None else g
                     for i, g in zip(idx, got)]
 

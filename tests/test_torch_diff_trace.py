@@ -19,6 +19,7 @@ Tolerances:
 """
 
 import dataclasses
+import inspect
 import os
 import sys
 
@@ -331,36 +332,39 @@ def test_forward_only_entry_points_never_replay(route, mesh, entry):
     assert torch.equal(got, call(port, tr.TraceConfig()))
 
 
-def test_grad_recording_render_runs_eagerly_and_caches_nothing(monkeypatch):
-    """graphs.runs_eagerly holds for a grad-recording render(clamp=False)
-    on a stand-in CUDA device, decided before the call: the cache gains
-    no entry. Without grad the same call would be captured."""
-    assert graphs.runs_eagerly("cuda", records_grad=True)
+def test_grad_recording_render_makes_its_own_key(monkeypatch):
+    """No eager rule for a call that records autograd any more
+    (graphs.runs_eagerly has no records_grad clause): on a stand-in CUDA
+    device (no eager rule, the warm-up a direct call) a grad-recording
+    render(clamp=False) makes one key, whose grad set names the leaf that
+    requires grad; the no-grad and clamp=True calls keep keys of their
+    own."""
+    assert "records_grad" not in inspect.signature(
+        graphs.runs_eagerly).parameters
     assert not graphs.runs_eagerly("cuda")
-    seen = []
-    rule = graphs.runs_eagerly
-
-    def on_card(device, group=None, records_grad=False):
-        # the rule a CUDA tensor meets (the CPU rule would hide it); the
-        # call then runs eagerly on the CPU, where it cannot be captured
-        seen.append(records_grad)
-        assert rule("cuda", group, records_grad) == records_grad
-        return True
-
-    monkeypatch.setattr(graphs, "runs_eagerly", on_card)
+    monkeypatch.setattr(graphs, "runs_eagerly",
+                        lambda device, group=None: False)
+    monkeypatch.setattr(graphs, "_warm_up", lambda call, device: call())
     graphs.clear()
     s = office("port", tess=2, w=32, h=32)
     data = s.build(device="cpu")
     leafy = dataclasses.replace(
         data, mat_diffuse=data.mat_diffuse.clone().requires_grad_(True))
     img = prender.render(leafy, s.camera, clamp=False)
-    assert img.requires_grad and seen == [True]
+    assert img.requires_grad and graphs.cache_size() == 1
+    (key,) = graphs._CACHE
+    staged_grad, held_grad = key[-2]
+    static, held = graphs.scene_inputs(leafy)
+    assert staged_grad == (False,) and held_grad == tuple(
+        t is leafy.mat_diffuse for t in held)
     with torch.no_grad():
         prender.render(leafy, s.camera, clamp=False)
-    prender.render(data, s.camera, clamp=False)
     prender.render(leafy, s.camera)
-    assert seen == [True, False, False, False]
-    assert graphs.cache_size() == 0
+    keys = list(graphs._CACHE)
+    assert len(keys) == 3 and keys[0] == key
+    assert keys[1][-2] is None and keys[2][-2] is None
+    assert keys[1][1] != keys[2][1]                  # clamp is static
+    graphs.clear()
 
 
 # --- the palette fit ------------------------------------------------------------

@@ -294,11 +294,13 @@ def test_render_kernels_match_plain(cuda):
     assert bool(torch.isfinite(got).all())
 
 
-def _unclamped_loss_grads(data, cam, cfg, target):
+def _unclamped_loss_grads(data, cam, cfg, target, params=None):
     """The SSE of render(clamp=False) against ``target`` under autograd:
-    (loss, gradients of split_params, the image)."""
-    params = {k: v.detach().clone().requires_grad_(True)
-              for k, v in split_params(data).items()}
+    (loss, gradients of split_params, the image); ``params`` the leaves
+    (copies of the scene's by default)."""
+    if params is None:
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in split_params(data).items()}
     img = render(merge_params(data, params), cam, cfg=cfg, clamp=False)
     loss = torch.sum((img - target) ** 2)
     got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
@@ -311,7 +313,8 @@ def test_unclamped_render_grads_through_kernels_match_plain(cuda, name):
     """render(clamp=False) under autograd: the topology kernels (and on
     office K5 forward, K6 backward) against the plain versions: the loss
     within rtol 1e-5, every gradient within 5e-4 * max|plain|, the image
-    at the render bar; the call runs eagerly and makes no graph."""
+    at the render bar; the call is its key's eager warm-up (a later call
+    replays graphs) and captures nothing."""
     if name == "office":
         s, cfg = scene_08_office(tess=10, resolution=(480, 270)), (
             tr.TraceConfig())
@@ -329,7 +332,7 @@ def test_unclamped_render_grads_through_kernels_match_plain(cuda, name):
            "shade_pre", "shade_phong")
     for k in fwd + (("seg_fwd", "seg_bwd") if name == "office" else ()):
         assert launched[k] > 0, k
-    assert graphs.cache_size() == 0
+    assert graphs.cache_size() == 1 and graphs.captured() == 0
     with graphs.disable_graphs():
         loss_p, grads_p, img_p = _unclamped_loss_grads(
             data, s.camera, cfg._replace(plain=True), target)
@@ -341,6 +344,33 @@ def test_unclamped_render_grads_through_kernels_match_plain(cuda, name):
             assert float(grads[k].abs().max()) > 0, k
     diff = (img - img_p).abs().amax(dim=-1)
     assert float((diff <= 1e-4).float().mean()) >= 0.995
+
+
+def test_graphed_unclamped_render_grads_equal_eager(cuda):
+    """render(clamp=False) under autograd on office at 256x256: its third
+    call replays the forward graph and, at the loss's backward, the
+    backward graph, with the launches of the eager call, the image equal
+    to eager's bit for bit, the loss within rtol 1e-6 and every gradient
+    within 5e-4 * max|eager| (K6 sums with atomics)."""
+    graphs.clear()
+    data, cam = _graph_office(cuda, 256, 256)
+    cfg = tr.TraceConfig()
+    target = 0.9 * render(data, cam, cfg) + 0.02
+    # one set of leaves for every call: their addresses are in the key
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in split_params(data).items()}
+    fn = (lambda: _unclamped_loss_grads(data, cam, cfg, target, params))
+    (loss_e, grads_e, img_e), l_eager = _eager(fn)
+    (loss, grads, img), l_graph, moved = _three_calls(fn)
+    assert moved["replays"] == 1 and moved["backward_replays"] == 1
+    assert moved["warm_ups"] == moved["captures"] == 0
+    assert moved["pending_eager"] == 0
+    assert l_graph == l_eager
+    assert torch.equal(img, img_e)
+    np.testing.assert_allclose(float(loss), float(loss_e), rtol=1e-6)
+    for k in grads_e:
+        _close_scaled(grads[k], grads_e[k], k, rel=5e-4)
+    graphs.clear()
 
 
 def test_mirror_scene_tiled_kernels_match_plain(cuda):
@@ -891,10 +921,11 @@ def _captured_launches():
 
     total = Counter()
     for entry in graphs._CACHE.values():
-        if entry.graph is not None:
-            total.update(entry.launches)
-            for body in entry.bodies:
-                total.update(body.launches)
+        for g in (entry.forward, entry.backward):
+            if g is not None:
+                total.update(g.launches)
+                for body in g.bodies:
+                    total.update(body.launches)
     return dict(total)
 
 
