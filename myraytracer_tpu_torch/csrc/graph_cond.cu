@@ -64,6 +64,21 @@ extern "C" int mrt_if_node_begin(const void* pred, void* stream,
       cudaStreamCaptureModeThreadLocal));
 }
 
+// The nodes of the graph that `stream` is capturing, so far, into *n (an
+// IF node counts as one; its body is a graph of its own).
+extern "C" int mrt_capture_nodes(void* stream, size_t* n) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, nullptr, &graph, nullptr,
+      nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (status != cudaStreamCaptureStatusActive) {
+    return static_cast<int>(cudaErrorIllegalState);
+  }
+  return static_cast<int>(cudaGraphGetNodes(graph, nullptr, n));
+}
+
 // Ends the body's capture that mrt_if_node_begin started on body_stream.
 extern "C" int mrt_if_node_end(void* body_stream) {
   cudaGraph_t body;

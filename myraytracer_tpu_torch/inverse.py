@@ -34,6 +34,12 @@ parameters); one that is not raises at the capture, and
 key; over gloo (host-staged collectives, which no capture can hold) the
 step runs eagerly. Eager collectives between replays (the barrier of
 :meth:`InverseRenderer.save_checkpoint`) run on the same communicator.
+
+Tracing (utils/profiling): the host spans ``mrt.fit.step`` (a step's
+call, its key and its replay), ``mrt.fit.loss_read`` (the loss's read
+back, a synchronise) and ``mrt.fit.result`` (the fit's result); inside
+the step the device phases ``fit.topology``, ``fit.replay``,
+``fit.backward`` (the whole backward) and ``fit.adam``.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from myraytracer_tpu_torch.ops.refit import refit_accel
 from myraytracer_tpu_torch.parallel.mesh import all_reduce, mesh_rank
 from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
                                                          split_params)
+from myraytracer_tpu_torch.utils.profiling import mark, span
 
 #: camera leaves exposed as parameters when a camera is attached: the
 #: pose (eye, center, up) and the vertical field of view in degrees
@@ -203,6 +210,8 @@ class InverseRenderer:
 
     def _step_body(self, a, b, target, pixel_mode: bool) -> torch.Tensor:
         """The body of :meth:`_step`."""
+        dev = self.base_scene.device
+        mark("fit.topology", dev)
         if self.mesh is not None:
             a, b, target, w = self._shard(a, b, target)
         p = self.params
@@ -217,15 +226,18 @@ class InverseRenderer:
         else:
             o, d = a, b
         topo = tr.trace_topology(scene, o.detach(), d.detach(), self.cfg)
+        mark("fit.replay", dev)
         c = tr.trace_shade(scene, o, d, topo, self.cfg)
         self.optimizer.zero_grad(set_to_none=True)
         if self.mesh is None:
             loss = torch.mean((c - target) ** 2)
-            loss.backward()
         else:
             loss = torch.sum(w[:, None] * (c - target) ** 2)
-            loss.backward()
+        mark("fit.backward", dev)
+        loss.backward()
+        if self.mesh is not None:
             loss = self._all_reduce(loss.detach(), w)
+        mark("fit.adam", dev)
         self.optimizer.step()
         return loss.detach()
 
@@ -267,13 +279,18 @@ class InverseRenderer:
         target = torch.as_tensor(target, dtype=torch.float32, device=dev)
         losses = []
         for i in range(steps):
-            losses.append(float(self._step(a, b, target, pixel_mode)))
+            with span("fit.step"):
+                loss = self._step(a, b, target, pixel_mode)
+            with span("fit.loss_read"):
+                losses.append(float(loss))
             self.step_count += 1
             if log_every and i % log_every == 0:
                 print(f"step {self.step_count}: loss={losses[-1]:.6f}")
-        return FitResult(self.scene_with(self.params), losses,
-                         {k: v.detach().clone() for k, v in self.params.items()},
-                         camera=self.fitted_camera())
+        with span("fit.result"):
+            return FitResult(
+                self.scene_with(self.params), losses,
+                {k: v.detach().clone() for k, v in self.params.items()},
+                camera=self.fitted_camera())
 
     def fit(self, o, d, target, steps: int = 100,
             log_every: int = 0) -> FitResult:

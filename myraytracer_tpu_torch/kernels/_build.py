@@ -79,6 +79,11 @@ _SIGNATURES = {
     # the capturing stream, the body's stream; the body's stream
     "mrt_if_node_begin": [_P] * 3,
     "mrt_if_node_end": [_P],
+    # the nodes of the graph a stream is capturing: the stream, size_t*
+    "mrt_capture_nodes": [_P, _P],
+    # a device phase mark (mark.cu; utils/profiling.mark): the phase's
+    # index, the stream
+    "mrt_mark": [_I, _P],
 }
 
 #: C helpers that give a kernel's dynamic shared memory per block, in
@@ -182,8 +187,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_size_t
-        lib.mrt_bvh_walk_threads.argtypes = []
-        lib.mrt_bvh_walk_threads.restype = ctypes.c_int
+        for name in ("mrt_bvh_walk_threads", "mrt_mark_phases"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         lib.mrt_error_string.argtypes = [ctypes.c_int]
         lib.mrt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -40,6 +40,15 @@ conditional segment under a CUDA-graph IF node (:func:`if_node`):
             path.
   size      at most :data:`MAX_GRAPHS` keys; the least recently used is
             evicted first and its graph and memory pool released.
+  tracing   host spans (``utils/profiling.span``) around a call's work,
+            each carrying the entry point's name: ``mrt.graphs.key``
+            (the key and the cache lookup), ``.stage``, ``.launch`` (a
+            graph's replay and its launch count; a differentiable
+            region's backward ``<name> (backward)``), ``.clone``, and in
+            set-up ``.warm_up``, ``.capture``, ``.evict``. A captured
+            region ends with the device mark ``end``; :func:`nodes` gives
+            a captured graph's nodes, :data:`SECONDS` the set-up's host
+            seconds, :data:`COUNTS` what the calls did.
   group     a sharded entry point (parallel/) passes its mesh's process
             group: the key holds the backend, this rank's index, the
             group's size and the group object itself (a new group over
@@ -98,8 +107,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import os
+import time
 import traceback
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -108,6 +119,8 @@ import torch
 import torch.distributed as dist
 
 from myraytracer_tpu_torch.kernels import _build
+from myraytracer_tpu_torch.utils import profiling
+from myraytracer_tpu_torch.utils.profiling import span
 
 #: graphs kept at once. Eight holds every key of one office
 #: configuration and triangle method: ``render``, ``render_aa``'s refine,
@@ -130,6 +143,7 @@ class _Body:
     pred: torch.Tensor                  # 0-d bool, written by each replay
     launches: Dict[str, int]            # kernel launches the body holds
     site: str = ""                      # what the body runs (if_node's)
+    nodes: int = 0                      # graph nodes the body holds
 
 
 @dataclasses.dataclass
@@ -139,6 +153,7 @@ class _Recording:
     device: torch.device
     pool: Optional[tuple] = None        # the bodies' memory pool, if any
     bodies: List[_Body] = dataclasses.field(default_factory=list)
+    nodes: int = 0                      # the graph's nodes at its end
 
 
 @dataclasses.dataclass
@@ -148,6 +163,8 @@ class _Graph:
     graph: Any                          # torch.cuda.CUDAGraph
     launches: Dict[str, int]            # per replay, outside IF nodes
     bodies: List[_Body]                 # its IF nodes' bodies
+    nodes: int = 0                      # its nodes outside IF nodes' bodies
+    label: str = ""                     # its launch span's entry point
 
 
 @dataclasses.dataclass
@@ -171,6 +188,8 @@ class _Entry:
     #: forward replays so far: a backward of an older one finds its
     #: residuals overwritten
     generation: int = 0
+    #: the entry point's name (the key's first part)
+    name: str = ""
 
 
 _CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
@@ -180,10 +199,15 @@ _CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
 #: (one per conditional segment); the IF nodes' bodies that ran and that
 #: were skipped in the last replay of each key that :func:`count_bodies`
 #: counted; and of differentiable regions, the captures and replays of
-#: the backward graph and the forwards run eagerly by the pending rule
+#: the backward graph and the forwards run eagerly by the pending rule;
+#: the keys evicted
 COUNTS = {"warm_ups": 0, "captures": 0, "replays": 0, "if_nodes": 0,
           "bodies_run": 0, "bodies_skipped": 0, "backward_captures": 0,
-          "backward_replays": 0, "pending_eager": 0}
+          "backward_replays": 0, "pending_eager": 0, "evictions": 0}
+#: host seconds of set-up so far: the warm-ups (a key's eager first call)
+#: and the captures (a differentiable region's two), each to a
+#: synchronise of its device. No replay adds to them.
+SECONDS = {"warm_up": 0.0, "capture": 0.0}
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 #: the streams that IF nodes' bodies are captured on
 _BODY_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
@@ -254,7 +278,35 @@ def _evict() -> None:
         if len(_CACHE) < MAX_GRAPHS:
             return
         if not _pending(_CACHE[key]):
-            _release(_CACHE.pop(key))
+            with span("graphs.evict", key[0]):
+                _release(_CACHE.pop(key))
+            COUNTS["evictions"] += 1
+
+
+def nodes(label: str) -> int:
+    """The nodes of the captured graph of the entry point ``label`` (a
+    differentiable region's backward graph: ``"<name> (backward)"``, the
+    name its launch span carries) used last: its nodes outside IF nodes,
+    each IF node one, plus every IF node's body's nodes, whether a replay
+    runs the body or not. 0 where no such graph is captured."""
+    for entry in reversed(_CACHE.values()):
+        for g in (entry.forward, entry.backward):
+            if g is not None and g.label == label:
+                return g.nodes + sum(b.nodes for b in g.bodies)
+    return 0
+
+
+@contextlib.contextmanager
+def _set_up(kind: str, name: str, device: torch.device):
+    """The block as set-up of ``kind`` ("warm_up" or "capture") of the
+    entry point ``name``: a span, and its host seconds to a synchronise
+    of ``device`` added to :data:`SECONDS` (not where it raises)."""
+    t0 = time.perf_counter()
+    with span("graphs." + kind, name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    SECONDS[kind] += time.perf_counter() - t0
 
 
 def tensor_key(t: torch.Tensor) -> tuple:
@@ -320,22 +372,24 @@ def run(name: str, fn: Callable, device, static=(),
     device = torch.device(device)
     if runs_eagerly(device, group):
         return fn(*(s.to(device) for s in staged))
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = make_key(name, static, held, staged, group, records_grad)
-    entry = _CACHE.get(key)
+    with span("graphs.key", name):
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = make_key(name, static, held, staged, group, records_grad)
+        entry = _CACHE.get(key)
     if entry is None:
         entry = _Entry(device, tuple(held), tuple(
             torch.empty(s.shape, dtype=s.dtype, device=device)
             .requires_grad_(records_grad and s.requires_grad)
-            for s in staged))
-        if records_grad:
-            # an ordinary autograd result, reaching the caller's inputs
-            out = _warm_up(lambda: fn(*(s.to(device) for s in staged)),
-                           device)
-        else:
-            _stage(entry, staged)
-            out = _warm_up(lambda: fn(*entry.staged), device)
+            for s in staged), name=name)
+        with _set_up("warm_up", name, device):
+            if records_grad:
+                # an ordinary autograd result, reaching the caller's inputs
+                out = _warm_up(lambda: fn(*(s.to(device) for s in staged)),
+                               device)
+            else:
+                _stage(entry, staged)
+                out = _warm_up(lambda: fn(*entry.staged), device)
         COUNTS["warm_ups"] += 1
         _evict()
         _CACHE[key] = entry
@@ -347,12 +401,14 @@ def run(name: str, fn: Callable, device, static=(),
     if entry.forward is None:
         def region():
             entry.outputs = fn(*entry.staged)
-        entry.forward, entry.body_pool = _capture(name, region, device,
-                                                  group is not None)
+        with _set_up("capture", name, device):
+            entry.forward, entry.body_pool = _capture(name, region, device,
+                                                      group is not None)
         COUNTS["captures"] += 1
     _replay(entry.forward)
     COUNTS["replays"] += 1
-    return _clone(entry.outputs)
+    with span("graphs.clone", name):
+        return _clone(entry.outputs)
 
 
 def _flat(outputs) -> tuple:
@@ -370,7 +426,8 @@ def _run_grad(name: str, fn: Callable, entry: _Entry, held, staged,
         COUNTS["pending_eager"] += 1
         return fn(*(s.to(entry.device) for s in staged))
     if entry.forward is None:
-        _capture_grad(name, fn, entry, held, staged, collective)
+        with _set_up("capture", name, entry.device):
+            _capture_grad(name, fn, entry, held, staged, collective)
     return _Differentiable.apply(entry, len(staged), *staged,
                                  *(t for t in held if t.requires_grad))
 
@@ -400,7 +457,8 @@ def _capture_grad(name: str, fn: Callable, entry: _Entry, held, staged,
 
     try:
         entry.forward, entry.body_pool = _capture(
-            f"{name} (forward)", forward, entry.device, collective)
+            f"{name} (forward)", forward, entry.device, collective,
+            label=name)
         outs = _flat(entry.outputs)
         entry.cot_index = tuple(i for i, o in enumerate(outs)
                                 if o.requires_grad)
@@ -408,7 +466,8 @@ def _capture_grad(name: str, fn: Callable, entry: _Entry, held, staged,
                                  for i in entry.cot_index)
         entry.backward, entry.body_pool = _capture(
             f"{name} (backward)", backward, entry.device, collective,
-            pool=entry.forward.graph.pool(), body_pool=entry.body_pool)
+            pool=entry.forward.graph.pool(), body_pool=entry.body_pool,
+            label=f"{name} (backward)")
     except GraphCaptureError:
         _release(entry)
         raise
@@ -433,7 +492,8 @@ class _Differentiable(torch.autograd.Function):
         entry.pending = weakref.ref(ctx)
         ctx.entry, ctx.generation = entry, entry.generation
         ctx.devices = [x.device for x in inputs]
-        return _clone(entry.outputs)
+        with span("graphs.clone", entry.name):
+            return _clone(entry.outputs)
 
     @staticmethod
     def backward(ctx, *cots):
@@ -448,8 +508,9 @@ class _Differentiable(torch.autograd.Function):
                 "or a later forward of its key has replayed over its "
                 "residuals: a second backward (retain_graph=True) must "
                 "come before the key's next call")
-        for buf, i in zip(entry.cotangents, entry.cot_index):
-            buf.copy_(cots[i])
+        with span("graphs.stage", entry.backward.label):
+            for buf, i in zip(entry.cotangents, entry.cot_index):
+                buf.copy_(cots[i])
         _replay(entry.backward)
         COUNTS["backward_replays"] += 1
         entry.pending = None
@@ -457,9 +518,10 @@ class _Differentiable(torch.autograd.Function):
         # the inputs that do, in order
         grads = iter(entry.grads)
         out = [None, None]
-        for takes, device in zip(ctx.needs_input_grad[2:], ctx.devices):
-            g = next(grads) if takes else None
-            out.append(None if g is None else g.to(device, copy=True))
+        with span("graphs.clone", entry.backward.label):
+            for takes, device in zip(ctx.needs_input_grad[2:], ctx.devices):
+                g = next(grads) if takes else None
+                out.append(None if g is None else g.to(device, copy=True))
         return tuple(out)
 
 
@@ -505,7 +567,7 @@ def body_sites(name: Optional[str] = None) -> List[Tuple[str, bool]]:
 def _stage(entry: _Entry, staged) -> None:
     """Copy each staged input into its buffer, on the current stream
     (ordered after the last replay that read the buffer)."""
-    with torch.no_grad():
+    with span("graphs.stage", entry.name), torch.no_grad():
         for buf, src in zip(entry.staged, staged):
             buf.copy_(src, non_blocking=True)
 
@@ -528,11 +590,12 @@ def _warm_up(call: Callable, device: torch.device):
 
 
 def _replay(g: _Graph) -> None:
-    g.graph.replay()
-    for k, n in g.launches.items():
-        _build.LAUNCHES[k] += n
-    if g.bodies:
-        _UNCOUNTED[id(g)] = g
+    with span("graphs.launch", g.label):
+        g.graph.replay()
+        for k, n in g.launches.items():
+            _build.LAUNCHES[k] += n
+        if g.bodies:
+            _UNCOUNTED[id(g)] = g
 
 
 def _failure_site(exc: BaseException) -> str:
@@ -555,22 +618,39 @@ def _failure_site(exc: BaseException) -> str:
 
 def _record(region: Callable[[], None], pool, mode: str):
     """``region()`` captured into a new CUDA graph (in the memory pool
-    ``pool``, a new one if None)."""
+    ``pool``, a new one if None), ended by the device mark ``end``; the
+    graph's nodes go to the recording."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
         region()
+        rec = _RECORDING
+        profiling.mark("end", rec.device)
+        rec.nodes = _capture_nodes(torch.cuda.current_stream(rec.device))
     return graph
+
+
+def _capture_nodes(stream: torch.cuda.Stream) -> int:
+    """The nodes of the graph that ``stream`` is capturing, so far
+    (``csrc/graph_cond.cu``)."""
+    lib = _build.library()
+    n = ctypes.c_size_t(0)
+    err = lib.mrt_capture_nodes(stream.cuda_stream, ctypes.addressof(n))
+    if err:
+        raise RuntimeError(f"counting a capture's nodes: CUDA error {err}: "
+                           f"{lib.mrt_error_string(err).decode()}")
+    return int(n.value)
 
 
 def _capture(name: str, region: Callable[[], None], device: torch.device,
              collective: bool = False, pool=None,
-             body_pool: Optional[tuple] = None
+             body_pool: Optional[tuple] = None, label: Optional[str] = None
              ) -> Tuple[_Graph, Optional[tuple]]:
     """Capture ``region()`` (which stores its results in the entry) ->
     (the graph, the IF nodes' bodies' pool: ``body_pool`` or one made
     here, or None). The launches its kernel wrappers count during the
     capture outside IF nodes become the count of one replay, those inside
-    each node its body's count. A region with a ``collective`` is
+    each node its body's count. ``label`` (``name`` by default) names the
+    graph's launch span and :func:`nodes`. A region with a ``collective`` is
     captured in the thread-local mode: the process group's watchdog
     thread queries the events of eager collectives (a warm-up's
     all-reduce, a checkpoint's barrier), which under the global mode
@@ -596,7 +676,8 @@ def _capture(name: str, region: Callable[[], None], device: torch.device,
         _build.LAUNCHES.update(before)
     COUNTS["if_nodes"] += len(rec.bodies)
     return _Graph(graph, {k: v for k, v in counted.items() if v},
-                  rec.bodies), rec.pool
+                  rec.bodies, rec.nodes,
+                  name if label is None else label), rec.pool
 
 
 def if_body_site() -> Optional[str]:
@@ -672,6 +753,7 @@ def if_node(pred: torch.Tensor, body: Callable[[], Any], site: str) -> None:
         try:
             with torch.cuda.stream(body_stream), recording_body(site):
                 body()
+            count = _capture_nodes(body_stream)
         finally:
             torch._C._cuda_endAllocateToPool(device.index, pool)
             if rec.pool is None:
@@ -689,7 +771,7 @@ def if_node(pred: torch.Tensor, body: Callable[[], Any], site: str) -> None:
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
                 if v != before[k]}
     _build.LAUNCHES.update(before)
-    rec.bodies.append(_Body(pred, launched, site))
+    rec.bodies.append(_Body(pred, launched, site, count))
 
 
 def _clone(x):

@@ -28,6 +28,12 @@ graph as a staged input, so a new camera of the same size replays the
 same graph. ``graphs.disable_graphs()`` runs them eagerly; CPU tensors
 always do.
 
+Each entry point's call is a host span (``mrt.render``, ``mrt.render_aa``,
+``mrt.aa_refine``; utils/profiling.span) and the device work inside its
+graphs is split by phase marks (``rays``, ``aa.select``, ``aa.apply``,
+the training step's ``refit``, ``topology``, ``replay`` and
+``backward``, and the trace's own; utils/profiling.mark).
+
 ``render(clamp=False)`` is differentiable, as the reference's is: under
 autograd its trace takes the replay route (``tracer.replays``), and on
 the card the call replays two graphs, the counterparts of the
@@ -57,6 +63,7 @@ from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.ops.refit import refit_accel
 from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
                                                          split_params)
+from myraytracer_tpu_torch.utils.profiling import mark, span
 
 #: screen-block edge of the primary ray order
 BLOCK = 32
@@ -142,7 +149,10 @@ def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
     ``group`` of a sharded entry point; a forward and a backward graph
     where ``records_grad`` (autograd records the call)."""
     W, H = camera.width, camera.height
-    scene_static, scene_held = graphs.scene_inputs(scene)
+    with span("graphs.key", name):
+        scene_static, scene_held = graphs.scene_inputs(scene)
+    with span("graphs.stage", name):
+        cam = camera.packed()
 
     def body(cam, *rest):
         return fn(Camera.from_packed(cam, W, H), *rest)
@@ -150,7 +160,7 @@ def _graphed(name: str, fn, scene, camera: Camera, static=(), held=(),
     return graphs.run(name, body, scene.device,
                       static=(scene_static, W, H) + tuple(static),
                       held=scene_held + list(held),
-                      staged=(camera.packed(),) + tuple(staged), group=group,
+                      staged=(cam,) + tuple(staged), group=group,
                       records_grad=records_grad)
 
 
@@ -175,20 +185,22 @@ def render(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     image still awaits its backward runs eagerly. Without autograd the
     call replays one graph.
     """
-    if clamp:
-        cfg = forward_only(cfg)
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not clamp):
-        return _graphed("render",
-                        lambda cam: _render(scene, cam, cfg, tile, clamp),
-                        scene, camera, static=(cfg, tile, clamp),
-                        records_grad=tr.records_grad(
-                            scene, camera.eye, camera.center, camera.up,
-                            camera.fovy))
+    with span("render"):
+        if clamp:
+            cfg = forward_only(cfg)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not clamp):
+            return _graphed("render",
+                            lambda cam: _render(scene, cam, cfg, tile, clamp),
+                            scene, camera, static=(cfg, tile, clamp),
+                            records_grad=tr.records_grad(
+                                scene, camera.eye, camera.center, camera.up,
+                                camera.fovy))
 
 
 def _render(scene, camera: Camera, cfg: tr.TraceConfig, tile: Optional[int],
             clamp: bool) -> torch.Tensor:
     """The body of :func:`render`."""
+    mark("rays", scene.device)
     H, W = camera.height, camera.width
     b = BLOCK
     Hp = -(-H // b) * b
@@ -306,8 +318,8 @@ def _aa_refine(scene, camera: Camera, img1,
     """The adaptive-supersampling pass over a finished pass-1 image: one
     CUDA graph on the card, with ``img1`` staged (copied into the graph's
     buffer) like the camera. No gradient, the nearest texel."""
-    cfg = forward_only(cfg)
-    with torch.no_grad():
+    with span("aa_refine"), torch.no_grad():
+        cfg = forward_only(cfg)
         return _graphed(
             "aa_refine",
             lambda cam, img: _aa_refine_body(scene, cam, img, cfg, tile,
@@ -320,11 +332,13 @@ def _aa_refine_body(scene, camera: Camera, img1, cfg: tr.TraceConfig,
                     tile: Optional[int], subp: int, threshold: float,
                     budget_frac: float) -> torch.Tensor:
     """The body of :func:`_aa_refine`."""
+    mark("aa.select", img1.device)
     top_idx, sel, o, d = _aa_rays(camera, img1, subp, threshold, budget_frac)
     # the subray batch is screen-scattered: its any-hit queries take the
     # exact phase-1 (K2), where the segment hulls would be loose
     colors = _trace_tiled(scene, o, d, cfg._replace(phase1="exact"),
                           o.shape[0] if tile is None else tile)
+    mark("aa.apply", img1.device)
     return _aa_apply(camera, img1, top_idx, sel, colors, subp)
 
 
@@ -341,9 +355,10 @@ def render_aa(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     card, as the reference's two jits: pass 1 (:func:`render`'s) and the
     refine. No gradient, the nearest texel (:func:`forward_only`).
     """
-    img1 = render(scene, camera, cfg, tile)
-    return _aa_refine(scene, camera, img1, cfg, tile, subp, threshold,
-                      budget_frac)
+    with span("render_aa"):
+        img1 = render(scene, camera, cfg, tile)
+        return _aa_refine(scene, camera, img1, cfg, tile, subp, threshold,
+                          budget_frac)
 
 
 def restore_mirror_chain(scene):
@@ -374,13 +389,13 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
     keeps no residual (``trace_shade(..., checkpoint=True)``): its
     autograd replay recomputes each segment in the backward, and the
     fused K5/K6 segment (:meth:`tr.TraceConfig.fused_grad`, the
-    reference's rule) keeps only its inputs. The four phases are
-    profiler ranges (``mrt.refit``, ``mrt.topology``, ``mrt.replay``,
-    ``mrt.backward``) that tools/torch_profile.py reports.
+    reference's rule) keeps only its inputs. The four stages are device
+    phases (``refit``, ``topology``, ``replay``, ``backward``; the
+    trace's phases subdivide them) that tools/torch_profile.py reports.
     """
-    rf = torch.profiler.record_function
-    with rf("mrt.refit"):
-        scene = refit_accel(scene)
+    dev = o.device
+    mark("refit", dev)
+    scene = refit_accel(scene)
     R = o.shape[0]
     tile = _fit_tile(R, min(tile, R), 1024)
     n_tiles = max(1, -(-R // tile))
@@ -396,27 +411,26 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
                 for i in range(n_tiles)]
 
     o_t, d_t, t_t, w_t = tiles(o_p), tiles(d_p), tiles(t_p), tiles(w_p)
-    with rf("mrt.topology"):
-        pack = tr.pack_trace(scene, cfg)
-        topo = [tr.trace_topology(scene, ot, dt, cfg, pack)
-                for ot, dt in zip(o_t, d_t)]
+    mark("topology", dev)
+    pack = tr.pack_trace(scene, cfg)
+    topo = [tr.trace_topology(scene, ot, dt, cfg, pack)
+            for ot, dt in zip(o_t, d_t)]
 
     params = {k: v.detach().requires_grad_(True)
               for k, v in split_params(scene).items()}
     merged = merge_params(scene, params)
 
     total = None
-    with rf("mrt.replay"):
-        geom = shade.pack_shade_geom(merged)
-        for ot, dt, tt, wt, tp in zip(o_t, d_t, t_t, w_t, topo):
-            c = tr.trace_shade(merged, ot, dt, tp, cfg, geom,
-                               checkpoint=True)
-            part = torch.sum(wt[:, None] * (c - tt) ** 2)
-            total = part if total is None else total + part
+    mark("replay", dev)
+    geom = shade.pack_shade_geom(merged)
+    for ot, dt, tt, wt, tp in zip(o_t, d_t, t_t, w_t, topo):
+        c = tr.trace_shade(merged, ot, dt, tp, cfg, geom, checkpoint=True)
+        part = torch.sum(wt[:, None] * (c - tt) ** 2)
+        total = part if total is None else total + part
     names = list(params)
-    with rf("mrt.backward"):
-        grads = torch.autograd.grad(total, [params[k] for k in names],
-                                    allow_unused=True)
+    mark("backward", dev)
+    grads = torch.autograd.grad(total, [params[k] for k in names],
+                                allow_unused=True)
     return total.detach(), {
         k: torch.zeros_like(params[k]) if g is None else g
         for k, g in zip(names, grads)}
@@ -474,6 +488,7 @@ def render_loss_grad_image(scene, camera: Camera, target: torch.Tensor,
 def _loss_grad_image(scene, camera: Camera, target: torch.Tensor,
                      cfg: tr.TraceConfig, tile: Optional[int]):
     """The body of :func:`render_loss_grad_image`."""
+    mark("rays", scene.device)
     H, W = camera.height, camera.width
     b = BLOCK
     Hp = -(-H // b) * b

@@ -54,6 +54,12 @@ a key's warm-up, ``disable_graphs()``, the sharded paths), a segment
 runs and a ``torch.where`` keeps or drops its result (:func:`_select`),
 and so do the backward's cotangents. Segment 0 of a fresh carry has
 every ray alive (weight 1), so it takes neither.
+
+Device phase marks (utils/profiling.mark) split a segment's device time:
+``segment`` at its start (inside an IF node's body for segments 1..,
+so a skipped segment leaves no mark), ``analytic`` before the dense
+analytic tests, ``tri`` before each triangle query, ``shade`` before K3,
+K4, K5 or the autograd replay.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops import traverse as trv
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.utils import vecmath as vm
+from myraytracer_tpu_torch.utils.profiling import mark
 
 #: rays x primitives per step of the dense analytic tests: bounds their
 #: [rays, P, 3] temporaries to 192 MB each
@@ -225,6 +232,7 @@ def _closest_analytic(scene, o, d):
     kinds = _analytic_kinds(scene)
     if not kinds:
         return kind, idx, aidx, best_t
+    mark("analytic", o.device)
     for sl in _ray_steps(scene, R):
         a_off = 0
         for k, n, fn in kinds:
@@ -247,6 +255,8 @@ def _analytic_occlusion(scene, o, d, dist):
     """
     shadowed = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     kinds = _analytic_kinds(scene)
+    if kinds:
+        mark("analytic", o.device)
     for sl in (_ray_steps(scene, o.shape[0]) if kinds else ()):
         for _, _, fn in kinds:
             shadowed[sl] |= (fn(o[sl], d[sl]) < dist[sl, None]).any(dim=1)
@@ -295,6 +305,7 @@ def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
     reference's ``_closest_tris`` does, with a closest query below
     ``t_max`` (idx >= 0 means occluded), masked here with ``active``.
     """
+    mark("tri", o.device)
     method = cfg.resolved_method()
     if method == "cluster":
         return cc.intersect_clusters(scene, o, d, t_max=t_max,
@@ -336,6 +347,7 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
                  cfg: TraceConfig = TraceConfig()):
     """One Whitted segment -> (next bounce with its color added, the
     segment's topology record (kind, idx, hit, miss, shadow))."""
+    mark("segment", carry.o.device)
     R = carry.o.shape[0]
     L = scene.n_lights
     live = carry.weight > 0.0
@@ -351,6 +363,7 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
 
     pre = cs.shade_pre_plain if cfg.plain else cs.shade_pre
     geom = pack.geom
+    mark("shade", o.device)
     point, normal, mid, texid, so, sd, st, sact = pre(
         o, d, t.contiguous(), kind, live_i, tri_idx,
         torch.where(valid, aidx, zero_i).contiguous(), geom.tri_pack,
@@ -359,6 +372,7 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
     shadow = shadow_mask(scene, pack, so, sd, st, sact, cfg).reshape(L, R)
 
     phong = cs.shade_phong_plain if cfg.plain else cs.shade_phong
+    mark("shade", o.device)
     add, o2, d2, w2 = phong(
         o, d, carry.weight.contiguous(), valid.to(torch.int32), live_i, mid,
         texid, point, normal, shadow.contiguous(), geom.mat16, scene.texels,
@@ -553,7 +567,9 @@ FUSED_FIELDS = ("light_pos", "light_color", "ambience", "background")
 def _replay_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
                     texture_filter: str) -> Bounce:
     """One segment of the autograd replay (the reference's default)."""
+    mark("segment", carry.o.device)
     kind, idx, h, miss, is_shadow = rec
+    mark("shade", carry.o.device)
     hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx, geom,
                             texture_filter)
     local = lighting_from_mask(scene, hit, -carry.d, is_shadow)
@@ -581,7 +597,9 @@ def _fused_rows(scene, rec, dtype) -> tuple:
 def _fused_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
                    plain: bool) -> Bounce:
     """One segment through the fused K5/K6 segment (ops/shade_grad.py)."""
+    mark("segment", carry.o.device)
     ti, is_t, h, miss, lit = _fused_rows(scene, rec, carry.o.dtype)
+    mark("shade", carry.o.device)
     add, o2, d2, w2 = sg.ShadeSegment.apply(
         carry.o.contiguous(), carry.d.contiguous(), carry.weight.contiguous(),
         geom.tri_pack, ti, scene.light_pos, scene.light_color,

@@ -1,0 +1,11 @@
+"""``graphs.launch_ms.frames``: the host's milliseconds per traced frame in
+the program's ``mrt.graphs.launch`` spans (each graph's
+``CUDAGraph.replay`` and its launch count) of both of ``render_aa``'s
+graphs; frames are its ``mrt.render_aa`` spans. Nothing where the
+program has no such spans."""
+
+from rtbench import spans as sp
+
+
+def read(run, state, trace, spans):
+    return sp.span_ms_per_call(trace, "mrt.graphs.launch", sp.FRAME)

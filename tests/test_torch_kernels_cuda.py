@@ -1056,6 +1056,111 @@ def test_if_node_skips_and_runs_by_the_condition(cuda):
     assert torch.equal(graphs.run("cond", region, cuda, held=[w, out]), want)
 
 
+# --- tracing: host spans, device phase marks, graph nodes (utils/profiling) --
+
+def _profiled(fn):
+    """(host span names, device phases of the marks in order, device
+    event names) of ``fn()`` and a synchronise under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from myraytracer_tpu_torch.utils.profiling import phase_of
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    events = list(prof.events())
+    host = [e.name for e in events if e.device_type != cuda_type]
+    dev = sorted((e for e in events if e.device_type == cuda_type
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    return (host, [phase_of(e.name) for e in dev if phase_of(e.name)],
+            [e.name for e in dev])
+
+
+def test_mark_library_holds_every_phase(cuda):
+    from myraytracer_tpu_torch.kernels import library
+    from myraytracer_tpu_torch.utils import profiling
+
+    assert library().mrt_mark_phases() == len(profiling.PHASES)
+    before = dict(LAUNCHES)
+    _, phases, _ = _profiled(lambda: [profiling.mark(p, cuda)
+                                      for p in profiling.PHASES])
+    assert phases == list(profiling.PHASES)
+    assert dict(LAUNCHES) == before
+
+
+def test_graphed_render_aa_spans_marks_and_nodes(cuda):
+    """A replayed render_aa shows the key, stage, launch and clone spans
+    of both graphs, no span's device copy among the device's operations,
+    each phase's mark once where expected, and the graphs' node counts,
+    positive and the same at every replay."""
+    graphs.clear()
+    data, cam = _graph_office(cuda)
+    cfg = tr.TraceConfig(tri_method="auto")
+
+    def frame():
+        return render_aa(data, cam, cfg, budget_frac=0.05)
+
+    frame()
+    frame()
+    nodes = {e: graphs.nodes(e) for e in ("render", "aa_refine")}
+    host, phases, dev = _profiled(frame)
+    seg = ["segment", "tri", "shade", "tri", "shade"] * data.n_segments
+    assert phases == (["rays"] + seg + ["end", "aa.select"] + seg
+                      + ["aa.apply", "end"])
+    for entry in ("render", "aa_refine"):
+        for what in ("key", "stage", "launch", "clone"):
+            assert host.count(f"mrt.graphs.{what} {entry}") >= 1, (what,
+                                                                    entry)
+        assert host.count(f"mrt.graphs.launch {entry}") == 1
+        assert f"mrt.graphs.capture {entry}" not in host
+    assert {"mrt.render_aa", "mrt.render", "mrt.aa_refine"} <= set(host)
+    assert not [n for n in dev if n.startswith("mrt.")]
+    assert all(v > len(seg) for v in nodes.values()), nodes
+    frame()
+    assert {e: graphs.nodes(e) for e in nodes} == nodes
+
+
+@pytest.mark.parametrize("entry", ["render", "fit"])
+def test_skipped_bodies_leave_no_segment_marks(cuda, entry):
+    """On the dead scene (segments 2 and 3 dead), a replay marks the
+    segments whose IF-node bodies ran, and the graph's node count holds
+    every body."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+
+    graphs.clear()
+    data, cam = _dead_scene(cuda)
+    if entry == "render":
+        fn = lambda: render(data, cam)              # noqa: E731
+    else:
+        xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+        tgt = torch.full((xs.numel(), 3), 0.3, device=cuda)
+        inv = InverseRenderer(data, ("mat_diffuse",), optimizer=adam(0.02),
+                              camera=cam)
+        fn = lambda: inv.fit_pixels(xs, ys, tgt, steps=1)  # noqa: E731
+    for _ in range(3):
+        fn()
+    with graphs.disable_graphs():
+        _, eager, _ = _profiled(fn)
+    replays = graphs.COUNTS["replays"]
+    _, replay, dev = _profiled(fn)
+    assert graphs.COUNTS["replays"] == replays + 1
+    assert data.n_segments == 4
+    # eagerly every segment runs; a replay runs segments 0 and 1 of each
+    # trace (render: one trace; fit: its topology and its shading replay)
+    traces = 1 if entry == "render" else 2
+    assert eager.count("segment") == 4 * traces
+    assert replay.count("segment") == 2 * traces, (replay, len(dev))
+    label = "render" if entry == "render" else "fit_step"
+    g = next(e.forward for e in graphs._CACHE.values()
+             if e.forward is not None and e.name == label)
+    assert g.bodies and all(b.nodes > 0 for b in g.bodies)
+    assert graphs.nodes(label) == g.nodes + sum(b.nodes for b in g.bodies)
+
+
 # --- the sharded entry points over NCCL at world size 1 (parallel/) ---------
 
 @pytest.fixture

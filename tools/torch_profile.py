@@ -7,15 +7,20 @@
 
 Runs office (tess 10, 1920x1080) twice to build, warm up and capture its
 CUDA graph, then five times under torch.profiler, and prints: the wall
-time per run (the profiler inflates the host side of an eager run), the
-device-busy time (summed kernel time; one stream, so kernels do not
-overlap) and its share of the wall time, and device time per kernel,
-largest first. The entry points replay CUDA graphs (ops/graphs.py) by
-default; ``--eager`` runs them under ``disable_graphs()``, the launches
-one by one. By default the run is the forward render; ``--fwd-bwd`` profiles
-the training step ``render_loss_grad_image`` instead (loss against a
-target image and all 23 parameter gradients; eager, its profiler ranges
-split it by phase, while graphed it is one replay); ``--scene NAME`` profiles
+time per run (the profiler inflates the host side, so take wall times
+from an unprofiled run), the device-busy time (summed kernel time; one
+stream, so kernels do not overlap), the device time per phase, and
+device time per kernel, largest first. The phases are the program's
+device marks (utils/profiling.mark): each stage of the entry point
+(``rays``, ``aa.select``, ``aa.apply``, the training step's ``refit``,
+``topology``, ``replay``, ``backward``) and, inside it, the trace's
+phases (``segment``, ``analytic``, ``tri``, ``shade``); they split a
+graph replay as they split an eager run. The entry points replay CUDA
+graphs (ops/graphs.py) by default; ``--eager`` runs them under
+``disable_graphs()``, the launches one by one. By default the run is the
+forward render; ``--fwd-bwd`` profiles the training step
+``render_loss_grad_image`` instead (loss against a target image and all
+23 parameter gradients); ``--scene NAME`` profiles
 ``render_aa`` of that golden scene (e.g. o_04_molecule) at its golden
 resolution and budget, or with ``--fwd-bwd`` its training step.
 ``--segments N`` traces only the first N Whitted segments (max_depth
@@ -39,35 +44,38 @@ import sys
 import time
 
 
-#: prefix of the training step's profiler ranges (ops/render.py)
+#: prefix of the program's host spans (utils/profiling.span)
 PHASE = "mrt."
 
 
 def phase_split(prof, reps: int):
-    """[(phase, host ms, device ms)] per step for the training step's
-    ranges: host time inside each range on the calling thread, and the
-    time of the kernels that start inside the range's span on the device.
-    Kernels outside every span ("backward+glue") are the backward, which
-    the autograd engine launches from its own thread, and the glue between
-    the phases."""
+    """(stages, phases): device ms per run in each stage and each phase
+    that the program's marks open (utils/profiling.mark), each kernel
+    charged to the last mark that started before it. A stage is the last
+    mark outside ``TRACE_PHASES``, which subdivide it; "(none)" holds
+    the kernels before the first mark and after an ``end``."""
     import torch
 
+    from myraytracer_tpu_torch.utils.profiling import TRACE_PHASES, phase_of
+
     cuda = torch.autograd.DeviceType.CUDA
-    host = {e.key: e.cpu_time_total / reps / 1e3 for e in prof.key_averages()
-            if e.key.startswith(PHASE) and e.device_type != cuda}
-    dev_events = [e for e in prof.events() if e.device_type == cuda]
-    spans = [(e.time_range.start, e.time_range.end, e.name)
-             for e in dev_events if e.name.startswith(PHASE)]
-    dev = {}
-    for e in dev_events:
-        if e.name.startswith(PHASE):
+    events = sorted((e for e in prof.events()
+                     if e.device_type == cuda and not e.name.startswith(PHASE)
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    stages, phases = {}, {}
+    stage = phase = "(none)"
+    for e in events:
+        mark = phase_of(e.name)
+        if mark is not None:
+            phase = "(none)" if mark == "end" else mark
+            if mark not in TRACE_PHASES:
+                stage = phase
             continue
-        t = e.time_range.start
-        name = next((n for a, b, n in spans if a <= t < b), "backward+glue")
-        dev[name] = dev.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    order = [PHASE + n for n in ("refit", "topology", "replay", "backward")]
-    return [(n, host.get(n, 0.0), dev.get(n, 0.0))
-            for n in order + ["backward+glue"]]
+        ms = e.time_range.elapsed_us() / reps / 1e3
+        stages[stage] = stages.get(stage, 0.0) + ms
+        phases[phase] = phases.get(phase, 0.0) + ms
+    return stages, phases
 
 
 def main() -> int:
@@ -144,7 +152,7 @@ def main() -> int:
             wall = (time.perf_counter() - t) / reps
 
     # device-side kernel events only (an aten op's row repeats its
-    # kernels' time; a phase range shows on the device as a span)
+    # kernels' time; a host span shows on the device as a span)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.key.startswith(PHASE)]
@@ -165,18 +173,19 @@ def main() -> int:
           f"{args.tri_method}; profiled: {what}, "
           f"{'eager' if args.eager else 'CUDA graph replays'}")
     print(f"wall {wall * 1e3:.3f} ms/{what} (profiled), device busy "
-          f"{busy:.3f} ms/{what} ({100 * busy / (wall * 1e3):.1f}% of the "
-          f"window), of which the port's CUDA kernels {own:.3f} ms")
+          f"{busy:.3f} ms/{what}, of which the port's CUDA kernels "
+          f"{own:.3f} ms")
     print(f"max_memory_reserved {torch.cuda.max_memory_reserved() / 2**30:.3f}"
           f" GiB over the warm-up, the capture and the runs")
     if args.fwd_bwd:
         bad = {k: int((~torch.isfinite(g)).sum()) for k, g in out[1].items()}
         print(f"gradient entries not finite: "
               f"{ {k: n for k, n in bad.items() if n} }")
-    if args.fwd_bwd and args.eager:
-        print(f"{'phase':>14} {'host ms':>9} {'device ms':>10}")
-        for name, host, dev in phase_split(prof, reps):
-            print(f"{name:>14} {host:9.3f} {dev:10.3f}")
+    stages, phases = phase_split(prof, reps)
+    for title, table in (("stage", stages), ("phase", phases)):
+        print(f"{title:>14} {'device ms':>10}")
+        for name, dev in sorted(table.items(), key=lambda kv: -kv[1]):
+            print(f"{name:>14} {dev:10.3f}")
     print(f"{'ms/run':>10} {'calls':>6}  kernel")
     for ms, calls, key in rows[:30]:
         print(f"{ms:10.4f} {calls:6d}  {key[:100]}")
