@@ -40,14 +40,19 @@ nvcc. Phases:
  10. K3 and K4 against their plain versions on the first Whitted segment
      of o_04 (spheres and planes, two lights), of o_10 (textured meshes)
      and of the mixed scene at 1920x1080 (every hit kind, a cylinder):
-     errors, id agreement, both times;
+     errors, id agreement, both times; then K8, the dense analytic tests
+     (closest hit, any hit), against their plain versions on o_04's
+     pass-1 rays and on the light-major shadow batch K3 emits for their
+     hits: kinds and ids equal and t to the bit, occlusion equal, both
+     times, the bound, registers, spills and SASS counts;
  11. the golden gallery: each of the ten goldens at its golden
      resolution through render_aa, warm, three times (median seconds,
      launch counts of that run, peak device memory), held against its
      plain-version run (>= 99.5% of pixels within 1e-4) and against the
      committed outputs/<name>.png (mean 8x8 cell delta below 1e-3,
-     >= 99% of pixels within 2/255); the mixed scene at 1920x1080
-     through render_aa;
+     >= 99% of pixels within 2/255), K8 launched in both modes exactly
+     where the scene holds a sphere, plane or cylinder; the mixed scene
+     at 1920x1080 through render_aa;
  12. office at 1920x1080 through render_aa, warm, three times, with the
      AA budget sized from the pass-1 image as bench.py sizes it, and
      whether that budget covers every pixel above the threshold;
@@ -229,7 +234,12 @@ and slot solves that the plain walk counts. K2's bound counts the work
 its exact warp cull leaves on these rays: a bundle test per (warp, box)
 of the warps it culls and a slab test per (active ray, box) that the
 cull keeps; beside it, its entry carries all_pairs_bound_ms (and
-all_pairs_bound_by), every (ray, box) slab test.
+all_pairs_bound_by), every (ray, box) slab test. K8 counts the
+ray-primitive pairs it tests on these rays (closest hit: every pair;
+any hit: each casting ray's rows in ana16 order up to its first
+occluder, from the plain dense tests) at OPS_ANA operations a pair, what
+a miss costs, and reads each ray's xyz origin and direction, its
+distance and cast flag, and the 32 bytes of each row it stages.
 
 Prints one JSON line with the per-kernel summary, then a final JSON status
 line; ``--log PATH`` writes the whole output to PATH as well. Any failed
@@ -273,6 +283,12 @@ BVH_KERNELS = tuple(
      "tools/studies/pallas_traverse.py:79")
     for name in ("bvh_walk_closest", "bvh_walk_anyhit"))
 
+#: K8, the dense analytic tests; it replaces no TPU kernel
+ANALYTIC_KERNELS = tuple(
+    (name, "myraytracer_tpu_torch/csrc/analytic.cu",
+     "none: the reference's tests are XLA, myraytracer_tpu/ops/tracer.py:193")
+    for name in ("analytic_closest", "analytic_anyhit"))
+
 #: K3/K4's analytic and texture branches, each its own summary entry:
 #: (entry, launch counter, source, TPU kernel, the scene whose first
 #: segment compares it and whose render_aa run counts its launches)
@@ -296,6 +312,10 @@ OPS_PRE = {"tri": 110, "texture": 25, "sphere": 20, "plane": 12,
            "cylinder": 35, "ray": 10, "light": 30}
 OPS_PHONG_RAY, OPS_PHONG_LIGHT = 30, 45
 OPS_SEG_RAY, OPS_SEG_LIGHT, BWD_OVER_FWD = 150, 45, 3
+#: K8's operations per ray-primitive pair up to the miss decision (a
+#: sphere's discriminant; a plane's two dots, parallel test and divide; a
+#: cylinder's quadratic), for spheres, planes, cylinders
+OPS_ANA = (20, 14, 45)
 
 #: the gallery's bars: kernels vs plain, and vs the committed PNGs
 GALLERY_AGREE, PNG_CELL_MEAN, PNG_PIX, PNG_PIX_FRAC = 0.995, 1e-3, 2 / 255, 0.99
@@ -318,7 +338,9 @@ SYMBOLS = {"phase1_exact": "phase1_exact_kernel",
            "seg_fwd": "seg_fwd_kernel",
            "seg_bwd": "seg_bwd_kernel",
            "bvh_walk_closest": "bvh_walk_kernelILb0E",
-           "bvh_walk_anyhit": "bvh_walk_kernelILb1E"}
+           "bvh_walk_anyhit": "bvh_walk_kernelILb1E",
+           "analytic_closest": "analytic_kernelILb0E",
+           "analytic_anyhit": "analytic_kernelILb1E"}
 
 #: the training scenes of phase 16 with their texture fetch
 TRAIN_GOLDENS = (("o_04_molecule", "nearest"), ("o_10_pokemon", "bilinear"))
@@ -1003,6 +1025,84 @@ def compare_branch_kernels(scenes, dev, report):
             check(bool((pre[3] >= 0).any()), f"{key}: no textured hit")
 
 
+def analytic_pairs(data, o, d, dist=None, cast=None) -> tuple:
+    """The ray-primitive pairs of each kind (spheres, planes, cylinders)
+    that K8 tests on these rays: every pair of a closest-hit query; for an
+    any-hit query (``dist``, ``cast``), each casting ray's rows in ana16
+    order up to its first occluder, all of them where none occludes (the
+    plain dense tests, a slice of rays at a time)."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import shade, tracer as tr
+
+    order = (shade.KIND_SPHERE, shade.KIND_PLANE, shade.KIND_CYL)
+    counts = (data.n_spheres, data.n_planes, data.n_cylinders)
+    if dist is None:
+        return tuple(o.shape[0] * n for n in counts)
+    o, d = o[:, :3], d[:, :3]
+    looking = cast.clone()
+    pairs = [0, 0, 0]
+    for k, n, fn in tr._analytic_kinds(data):
+        for sl in tr._ray_steps(data, o.shape[0]):
+            occ = fn(o[sl], d[sl]) < dist[sl, None]                 # [N, n]
+            hit = occ.any(dim=1)
+            tested = torch.where(hit, occ.float().argmax(dim=1) + 1, n)
+            pairs[order.index(k)] += int(tested[looking[sl]].sum())
+            looking[sl] &= ~hit
+    return tuple(pairs)
+
+
+def compare_analytic(scenes, dev, report, ptxas, sass):
+    """Phase 10, K8: closest hit on o_04's pass-1 rays and any hit on the
+    light-major shadow batch K3 emits for their hits, against the plain
+    dense tests (kinds and ids equal, t to the bit, occlusion equal)."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import cuda_analytic as ca
+    from myraytracer_tpu_torch.ops import cuda_shade as cs
+    from myraytracer_tpu_torch.ops import tracer as tr
+
+    scene, data = scenes["o_04_molecule"]
+    pack, o, d, _, _, pre_args = first_segment(data, scene.camera, dev)
+    so, sd, st, sact = cs.shade_pre(*pre_args)[4:]
+    cast = sact > 0
+    ana16 = pack.geom.ana16
+    counts = (data.n_spheres, data.n_planes, data.n_cylinders)
+    queries = (
+        ("analytic_closest", (o, d, None, None),
+         lambda: tr._closest_analytic(data, o, d, ana16),
+         lambda: ca.closest_analytic(o, d, ana16, counts),
+         lambda: tr._closest_analytic_plain(data, o, d)),
+        ("analytic_anyhit", (so, sd, st, cast),
+         lambda: (tr._analytic_occlusion(data, so, sd, st, cast, ana16),),
+         lambda: ca.analytic_anyhit(so, sd, st, cast, ana16, counts),
+         lambda: (cast & tr._analytic_occlusion_plain(
+             data, so[:, :3], sd[:, :3], st),)))
+    for name, (qo, qd, dist, cst), route, kernel, plain in queries:
+        for a, b in zip(route(), plain()):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            n_bad = int((a != b).sum())
+            check(n_bad == 0, f"{name}: differs from the plain version on "
+                  f"{n_bad} rays")
+        R = qo.shape[0]
+        pairs = analytic_pairs(data, qo, qd, dist, cst)
+        n_bytes = (R * (24 + (4 + 1 + 1 if dist is not None else 16))
+                   + sum(counts) * 32)
+        rep = dict(max_abs_err=0.0, ms=graph_ms(kernel),
+                   plain_ms=time_ms(plain, 1), pairs=sum(pairs),
+                   **bound(n_bytes, sum(p * k for p, k in zip(pairs,
+                                                              OPS_ANA))))
+        share = (f", casting {float(cst.float().mean()):.4f}"
+                 if cst is not None else "")
+        print(f"{name}: {R} rays x {sum(counts)} primitives{share}, "
+              f"{sum(pairs)} pairs tested, equal to the plain version (t to "
+              f"the bit); {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.1f} "
+              f"ms; bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+        rep.update(resources(name, ptxas), **sass_counts(name, sass))
+        report[name] = rep
+
+
 def timed(fn, reps: int = 3):
     """(result, seconds per call, launches of those calls) after one warm
     call; the counts are set to 0 just before the timed calls. The
@@ -1079,6 +1179,12 @@ def gallery(scenes, dev, report):
         path = FWD_KERNELS if data.n_tris else ("shade_pre", "shade_phong")
         for k in path:
             check(launches[k] > 0, f"{name}: {k} was not launched")
+        analytic = bool(data.n_spheres or data.n_planes or data.n_cylinders)
+        for k, _, _ in ANALYTIC_KERNELS:
+            check((launches[k] > 0) == analytic,
+                  f"{name}: {k} launched {launches[k]} times")
+            if name == "o_04_molecule":
+                report[k]["launches"] = launches[k]
         for entry, counter, _, _, scn in BRANCHES:
             if scn == name:
                 report[entry]["launches"] = launches[counter]
@@ -2984,6 +3090,8 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     for name in FWD_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the render")
         report[name]["launches"] = launches[name]
+    for name, _, _ in ANALYTIC_KERNELS:
+        check(launches[name] == 0, f"{name} was launched by the office render")
 
     compare_segment_kernels(data, scene.camera, report, ptxas, sass)
     compare_training_paths(data, cam_small)
@@ -3012,6 +3120,7 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
 
     scenes = build_gallery(dev)
     compare_branch_kernels(scenes, dev, report)
+    compare_analytic(scenes, dev, report, ptxas, sass)
     gallery(scenes, dev, report)
     office_aa(data, scene.camera)
     compare_bvh_walk(data, scene.camera, report, ptxas, sass)
@@ -3096,7 +3205,8 @@ def main(argv=None) -> int:
         print(f"SASS not measured: {e}")
         sass = None
     report = run(kernels.kernel_resources(log), sass)
-    entries = [(n, src, rep) for n, src, rep in KERNELS + BVH_KERNELS] + [
+    entries = [(n, src, rep) for n, src, rep in
+               KERNELS + BVH_KERNELS + ANALYTIC_KERNELS] + [
         (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,
                     **report[name]) for name, src, rep in entries]

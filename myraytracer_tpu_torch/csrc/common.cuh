@@ -14,6 +14,9 @@
 #define MRT_EPS_DET 1e-10f
 #define MRT_EPS_OFFSET 1e-4f
 #define MRT_EPS_NORMALIZE 1e-20f
+#define MRT_EPS_PARALLEL 1e-9f
+// ray_cylinder's guard for a ray parallel to the axis
+#define MRT_EPS_AXIS 1e-12f
 
 // NaN-propagating min/max, the semantics of torch.minimum/torch.maximum
 // (fminf/fmaxf would drop a NaN operand instead).

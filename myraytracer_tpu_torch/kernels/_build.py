@@ -17,9 +17,9 @@ rely on IEEE 1/0 = inf and on comparisons with INF = 3e38).
 FMA contraction: the compute-bound cluster scan keeps nvcc's default
 contraction (10% faster on the H100, with hit ids equal to the plain
 version's on all but 7 of 2,088,960 office rays). The memory-bound
-shading kernels and the latency-bound BVH walk (``NO_FMA``) are built
-with ``-fmad=false``, which keeps every a*b+c rounded twice, as the
-plain PyTorch versions compute it: there, kernel and plain version agree
+shading kernels, the latency-bound BVH walk and the dense analytic
+tests (``NO_FMA``) are built with ``-fmad=false``, which keeps every
+a*b+c rounded twice, as the plain PyTorch versions compute it: there, kernel and plain version agree
 bit for bit.
 
 Each C entry point takes device pointers and the CUDA stream as
@@ -48,7 +48,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: sources built without FMA contraction (see the module docstring)
-NO_FMA = ("bvh_walk.cu", "shade.cu", "shade_grad.cu")
+NO_FMA = ("analytic.cu", "bvh_walk.cu", "shade.cu", "shade_grad.cu")
 
 #: kernel launches so far, per kernel; a wrapper adds one where it
 #: launches its kernel and nowhere else (reset with reset_launches)
@@ -62,6 +62,8 @@ LAUNCHES = {
     "seg_bwd": 0,
     "bvh_walk_closest": 0,
     "bvh_walk_anyhit": 0,
+    "analytic_closest": 0,
+    "analytic_anyhit": 0,
 }
 
 _P = ctypes.c_void_p
@@ -75,6 +77,7 @@ _SIGNATURES = {
     "mrt_seg_fwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
     "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
     "mrt_bvh_walk": [_P] * 9 + [_I] * 4 + [_P],
+    "mrt_analytic": [_P] * 10 + [_I] * 6 + [_P],
     # CUDA-graph IF nodes (graph_cond.cu; ops/graphs.if_node): pred,
     # the capturing stream, the body's stream; the body's stream
     "mrt_if_node_begin": [_P] * 3,

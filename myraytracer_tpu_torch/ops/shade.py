@@ -86,7 +86,7 @@ def pack_mat16(scene) -> torch.Tensor:
     ], dim=1)
 
 
-def _pack_ana16(scene) -> torch.Tensor:
+def pack_ana16(scene) -> torch.Tensor:
     """[A, 16] analytic rows: spheres, then planes, then cylinders."""
     f32 = dict(dtype=torch.float32, device=scene.device)
     rows = []
@@ -116,7 +116,7 @@ def _pack_ana16(scene) -> torch.Tensor:
 def pack_shade_geom(scene) -> ShadeGeom:
     """Build the packed rows of a scene (layout in the module doc)."""
     mat16 = pack_mat16(scene)
-    ana16 = _pack_ana16(scene)
+    ana16 = pack_ana16(scene)
     if not scene.n_tris:
         return ShadeGeom(tri_pack=mat16.new_zeros((1, 32)),
                          mat16=mat16.contiguous(), ana16=ana16)

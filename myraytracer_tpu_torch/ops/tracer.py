@@ -4,13 +4,13 @@ Counterpart of ``myraytracer_tpu/ops/tracer.py``. Every Whitted segment
 runs once over the whole flat ray batch:
 
   closest hit  the dense analytic tests (spheres, then planes, then
-               cylinders; torch ops), then triangles by
+               cylinders; K8, ops/cuda_analytic.py), then triangles by
                ``TraceConfig.tri_method``, merged in that order with
                strict <
   pre kernel   K3: per-kind hit resolve, atlas index, light-major
                shadow batch
   any hit      the triangle method's occlusion query OR-ed with the
-               dense analytic occlusion
+               dense analytic occlusion (K8's any-hit mode)
   phong kernel K4: lighting with the texel override, blend, bounce.
 
 The triangle methods: ``"cluster"`` (the default) is the cluster scan
@@ -71,6 +71,7 @@ import torch
 import torch.utils.checkpoint
 from torch.autograd.function import once_differentiable
 
+from myraytracer_tpu_torch.ops import cuda_analytic as ca
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import graphs
@@ -82,8 +83,8 @@ from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.utils import vecmath as vm
 from myraytracer_tpu_torch.utils.profiling import mark
 
-#: rays x primitives per step of the dense analytic tests: bounds their
-#: [rays, P, 3] temporaries to 192 MB each
+#: rays x primitives per step of the plain dense analytic tests: bounds
+#: their [rays, P, 3] temporaries to 192 MB each
 ANA_BUDGET = 1 << 24
 
 
@@ -215,7 +216,12 @@ def _ray_steps(scene, n: int):
     return [slice(i, i + step) for i in range(0, n, step)]
 
 
-def _closest_analytic(scene, o, d):
+def _counts(scene) -> tuple:
+    """(spheres, planes, cylinders): the ana16 rows of each kind."""
+    return scene.n_spheres, scene.n_planes, scene.n_cylinders
+
+
+def _closest_analytic(scene, o, d, ana16=None, plain: bool = False):
     """Closest sphere/plane/cylinder hit of each ray.
 
     Returns (kind [R] i32, idx [R] i32 per-kind index, aidx [R] i32 row
@@ -223,7 +229,25 @@ def _closest_analytic(scene, o, d):
     primitive is hit. The kinds merge in the order sphere, plane,
     cylinder with strict <, and each kind's argmin takes the first
     minimum, so exact ties resolve as in the reference.
+
+    CUDA tensors launch K8 (ops/cuda_analytic.py) on ``ana16``, the
+    scene's ShadeGeom.ana16 (packed here when None); CPU tensors and
+    ``plain`` run :func:`_closest_analytic_plain`, as does a scene
+    without an analytic primitive, which launches nothing.
     """
+    if plain or o.device.type == "cpu" or not shade.has_analytic(scene):
+        return _closest_analytic_plain(scene, o, d)
+    mark("analytic", o.device)
+    if ana16 is None:
+        ana16 = shade.pack_ana16(scene)
+    return ca.closest_analytic(o.detach().contiguous(),
+                               d.detach().contiguous(), ana16.detach(),
+                               _counts(scene))
+
+
+def _closest_analytic_plain(scene, o, d):
+    """The plain version of :func:`_closest_analytic`: each kind one dense
+    [R, P] test in ray slices of ANA_BUDGET pairs, merged with strict <."""
     R = o.shape[0]
     kind = torch.full((R,), shade.KIND_MISS, dtype=torch.int32, device=o.device)
     idx = torch.zeros(R, dtype=torch.int32, device=o.device)
@@ -248,11 +272,33 @@ def _closest_analytic(scene, o, d):
     return kind, idx, aidx, best_t
 
 
-def _analytic_occlusion(scene, o, d, dist):
+def _analytic_occlusion(scene, o, d, dist, cast=None, ana16=None,
+                        plain: bool = False):
     """Does any analytic primitive occlude o -> o + dist d? [N] bool.
 
-    Each kind is one dense [N, P] test: shadowed iff any t < dist.
+    o, d [N, 3] or [N, 4] (xyz first); shadowed iff some primitive's t
+    (INF on a miss) is below dist. With ``cast`` [N] bool, only where it
+    holds (the rest False). CUDA tensors launch K8's any-hit mode on
+    ``ana16`` (packed here when None), which stops a ray at its first
+    occluder and skips a ray that does not cast; CPU tensors and
+    ``plain`` run :func:`_analytic_occlusion_plain`.
     """
+    if plain or o.device.type == "cpu" or not shade.has_analytic(scene):
+        occ = _analytic_occlusion_plain(scene, o[:, :3], d[:, :3], dist)
+        return occ if cast is None else cast & occ
+    mark("analytic", o.device)
+    if ana16 is None:
+        ana16 = shade.pack_ana16(scene)
+    return ca.analytic_anyhit(o.detach().contiguous(),
+                              d.detach().contiguous(),
+                              dist.detach().contiguous(), cast,
+                              ana16.detach(), _counts(scene))
+
+
+def _analytic_occlusion_plain(scene, o, d, dist):
+    """The plain version of :func:`_analytic_occlusion` (without
+    ``cast``): each kind is one dense [N, P] test: shadowed iff any
+    t < dist."""
     shadowed = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     kinds = _analytic_kinds(scene)
     if kinds:
@@ -286,7 +332,8 @@ def closest_hit(scene, pack: TracePack, o, d, live,
     [R] i32 the per-kind index; aidx [R] i32 the ana16 row of the
     closest analytic primitive; t [R], INF on a miss).
     """
-    kind, pidx, aidx, t = _closest_analytic(scene, o, d)
+    kind, pidx, aidx, t = _closest_analytic(scene, o, d, pack.geom.ana16,
+                                            cfg.plain)
     if scene.n_tris:
         tri = _tri_query(scene, pack, o, d, live, cfg)
         better = tri.t < t
@@ -338,8 +385,8 @@ def shadow_mask(scene, pack: TracePack, so, sd, st, sact,
                          any_hit=True)
         shadow = occ.idx >= 0
     if shade.has_analytic(scene):
-        shadow = shadow | (cast & _analytic_occlusion(
-            scene, so[:, :3], sd[:, :3], st))
+        shadow = shadow | _analytic_occlusion(scene, so, sd, st, cast,
+                                              pack.geom.ana16, cfg.plain)
     return shadow.to(torch.int32)
 
 

@@ -33,6 +33,8 @@ from myraytracer_tpu.ops import tracer as rtr
 from myraytracer_tpu.ops.render import render_aa as r_render_aa
 from myraytracer_tpu.scenes.shapes import uv_sphere as r_uv_sphere
 
+from myraytracer_tpu_torch.kernels import _build as kbuild
+from myraytracer_tpu_torch.ops import cuda_analytic as ca
 from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import intersect as isx
 from myraytracer_tpu_torch.ops import render as prender
@@ -175,6 +177,59 @@ def test_mesh_only_scene_skips_the_analytic_tests():
     kind, idx, aidx, t = tr._closest_analytic(port, o, d)
     assert (kind == shade.KIND_MISS).all() and (t == isx.INF).all()
     assert not tr._analytic_occlusion(port, o, d, t).any()
+
+
+def test_analytic_kernel_is_registered():
+    """K8 (csrc/analytic.cu) builds without FMA contraction, has its C
+    signature, and counts the launches of both modes."""
+    assert (kbuild.CSRC_DIR / "analytic.cu").exists()
+    assert "analytic.cu" in kbuild.NO_FMA
+    assert {"analytic_closest", "analytic_anyhit"} <= set(kbuild.LAUNCHES)
+    assert "mrt_analytic" in kbuild._SIGNATURES
+
+
+def test_analytic_kernel_wrappers_refuse_cpu_tensors():
+    o = torch.zeros((4, 3))
+    ana16 = torch.zeros((1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ca.closest_analytic(o, o, ana16, (1, 0, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        ca.analytic_anyhit(o, o, torch.ones(4), None, ana16, (1, 0, 0))
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_cpu_queries_take_the_plain_analytic_tests(plain):
+    """closest_hit and shadow_mask on CPU tensors, with and without
+    TraceConfig(plain=True), return the plain versions' values and
+    launch nothing; the occlusion takes the shadow batch's [R, 4] rows."""
+    s, ref, port, _ = _build("triless")
+    o, d = (torch.from_numpy(x.copy()) for x in _pixel_rays(s))
+    cfg = tr.TraceConfig(plain=plain)
+    pack = tr.pack_trace(port, cfg)
+    R = o.shape[0]
+    live = torch.arange(R) % 7 != 0
+    before = dict(kbuild.LAUNCHES)
+    kind, pidx, aidx, t = tr.closest_hit(port, pack, o, d, live, cfg)
+    want = tr._closest_analytic_plain(port, o, d)
+    assert torch.equal(kind, torch.where(live, want[0], shade.KIND_MISS))
+    for a, b in zip((pidx, aidx, t), want[1:]):
+        assert torch.equal(a, b)
+
+    valid = kind != shade.KIND_MISS
+    zero = torch.zeros_like(pidx)
+    g = pack.geom
+    so, sd, st, sact = cs.shade_pre_plain(
+        o, d, t, kind, live.to(torch.int32), zero,
+        torch.where(valid, aidx, zero), g.tri_pack, g.ana16, g.mat16,
+        port.light_pos, port.texels.shape[0])[4:]
+    cast = sact > 0
+    occ = tr._analytic_occlusion_plain(port, so[:, :3], sd[:, :3], st)
+    assert torch.equal(tr.shadow_mask(port, pack, so, sd, st, sact, cfg),
+                       (cast & occ).to(torch.int32))
+    assert torch.equal(tr._analytic_occlusion(port, so, sd, st, cast),
+                       cast & occ)
+    assert bool((cast & occ).any()) and bool((cast & ~occ).any())
+    assert kbuild.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,8 @@ triangle's row cotangents into the tri_pack cotangent, with atomics in a
 run-dependent order: cotangents within 3e-5 * max|plain| (the
 reference's bar for its hand-derived VJP), the tri_pack cotangent within
 5e-4 * max|plain| (its bar for gradients summed over many rays). The BVH
-walk (K7, built without contraction) equals its plain version: ids and t
-to the bit.
+walk (K7) and the dense analytic tests (K8), both built without
+contraction, equal their plain versions: ids and t to the bit.
 """
 
 import numpy as np
@@ -31,6 +31,7 @@ from myraytracer_tpu_torch.kernels import LAUNCHES, build
 from myraytracer_tpu_torch.models.material import Material
 from myraytracer_tpu_torch.models.mesh import FLAT, TriangleMesh
 from myraytracer_tpu_torch.models.scene import Scene
+from myraytracer_tpu_torch.ops import cuda_analytic as ca
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import graphs
@@ -733,6 +734,235 @@ def test_bvh_walk_wrapper_rejects_bad_inputs(cuda):
                      False)
     with pytest.raises(ValueError, match="nodes"):
         trv.bvh_walk(o, d, t0, act, nodes.cpu(), links, tri, False)
+
+
+# --- K8, the dense analytic tests (csrc/analytic.cu) -----------------------
+
+def _analytic_scene(dev, spheres=(), planes=(), cylinders=()):
+    """A scene of spheres (center, radius), planes (center, normal) and
+    cylinders (center, axis, radius, height) alone."""
+    s = Scene()
+    s.add_light((2, 9, 4), (0.8, 0.8, 0.8))
+    for c, r in spheres:
+        s.add_sphere(c, r, Material())
+    for c, n in planes:
+        s.add_plane(c, n, Material())
+    for c, a, r, h in cylinders:
+        s.add_cylinder(c, a, r, h, Material())
+    return s.build(device=dev)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _check_analytic(data, o, d, seed=0):
+    """K8's closest hit against the plain version on rays o, d (kind, idx
+    and aidx equal, t to the bit), and its any hit against the plain
+    occlusion & cast under seeded random distances (INF and inf among
+    them) and cast flags, on [R, 3] rays and on the shadow batch's
+    [R, 4] rows; each call one launch. Returns the closest hit."""
+    before = LAUNCHES["analytic_closest"]
+    got = tr._closest_analytic(data, o, d)
+    assert LAUNCHES["analytic_closest"] == before + 1
+    want = tr._closest_analytic_plain(data, o, d)
+    for name, a, b in zip(("kind", "idx", "aidx"), got[:3], want[:3]):
+        assert torch.equal(a, b), name
+    assert torch.equal(_bits(got[3]), _bits(want[3])), "t"
+
+    g = torch.Generator().manual_seed(seed)
+    R = o.shape[0]
+    dist = (torch.rand(R, generator=g) * 30).to(o.device)
+    u = torch.rand(R, generator=g).to(o.device)
+    dist = torch.where(u < 0.15, INF, dist)
+    dist = torch.where((u >= 0.15) & (u < 0.2), float("inf"), dist)
+    dist = torch.where((u >= 0.2) & (u < 0.3), want[3], dist)  # t < t: no
+    cast = (torch.rand(R, generator=g) > 0.25).to(o.device)
+    occ_want = tr._analytic_occlusion_plain(data, o, d, dist) & cast
+    o4, d4 = (torch.nn.functional.pad(x, (0, 1)) for x in (o, d))
+    for name, oo, dd in (("rows of 3", o, d), ("rows of 4", o4, d4)):
+        before = LAUNCHES["analytic_anyhit"]
+        occ = tr._analytic_occlusion(data, oo, dd, dist, cast)
+        assert LAUNCHES["analytic_anyhit"] == before + 1
+        assert torch.equal(occ, occ_want), name
+    assert bool(occ_want.any()) and not bool(occ_want.all())
+    return got
+
+
+def test_analytic_kernel_matches_plain_on_the_molecule(cuda):
+    """o_04's pass-1 camera rays, their mirror bounce, and the light-major
+    shadow batch K3 emits for the camera rays' hits."""
+    from myraytracer_tpu_torch.scenes.golden import scene_04_molecule
+
+    s = scene_04_molecule()
+    data = s.build(device=cuda)
+    assert (data.n_spheres, data.n_planes) == (800, 3)
+    pack = tr.pack_trace(data)
+    o, d = primary_rays_blocked(s.camera, cuda)
+    kind = _check_analytic(data, o, d)[0]
+    assert {shade.KIND_SPHERE, shade.KIND_PLANE} <= set(kind.unique().tolist())
+    R = o.shape[0]
+    carry = tr.Bounce(o, d, torch.ones(R, device=cuda),
+                      torch.zeros((R, 3), device=cuda))
+    nxt, rec = tr.segment_step(data, pack, carry)
+    assert bool((nxt.weight > 0).any())
+    _check_analytic(data, nxt.o, nxt.d, seed=1)
+
+    live = torch.ones(R, dtype=torch.bool, device=cuda)
+    kind, pidx, aidx, t = tr.closest_hit(data, pack, o, d, live)
+    valid = kind != shade.KIND_MISS
+    zero = torch.zeros_like(pidx)
+    g = pack.geom
+    so, sd, st, sact = cs.shade_pre(
+        o, d, t.contiguous(), kind, live.to(torch.int32), zero,
+        torch.where(valid, aidx, zero).contiguous(), g.tri_pack, g.ana16,
+        g.mat16, data.light_pos, data.texels.shape[0])[4:]
+    cast = sact > 0
+    before = LAUNCHES["analytic_anyhit"]
+    occ = tr._analytic_occlusion(data, so, sd, st, cast, g.ana16)
+    assert LAUNCHES["analytic_anyhit"] == before + 1
+    want = cast & tr._analytic_occlusion_plain(data, so[:, :3], sd[:, :3], st)
+    assert torch.equal(occ, want)
+    assert bool(want.any()) and not bool(want[cast].all())
+    # shadow_mask takes the same route
+    shadow = tr.shadow_mask(data, pack, so, sd, st, sact)
+    assert torch.equal(shadow, want.to(torch.int32))
+
+
+def _random_analytic(rng, S, P, C):
+    """Seeded random spheres, planes (a third with normal +y) and
+    cylinders (a third with axis +y)."""
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        v[: n // 3] = [0.0, 1.0, 0.0]
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    sph = [(tuple(c), float(r)) for c, r in zip(
+        rng.uniform(-4, 4, (S, 3)), rng.uniform(0.2, 1.5, S))]
+    pla = [(tuple(c), tuple(n)) for c, n in zip(rng.uniform(-5, 5, (P, 3)),
+                                                unit(P))]
+    cyl = [(tuple(c), tuple(a), float(r), float(h)) for c, a, r, h in zip(
+        rng.uniform(-4, 4, (C, 3)), unit(C), rng.uniform(0.2, 1.0, C),
+        rng.uniform(0.5, 3.0, C))]
+    return sph, pla, cyl
+
+
+def _random_analytic_rays(rng, R, dev):
+    """Random rays, a sixteenth along +-y (parallel to the planes with
+    normal +y and to the cylinders with axis +y) and a sixteenth along x."""
+    o = rng.uniform(-7, 7, (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d[: R // 16] = [0.0, 1.0, 0.0]
+    d[R // 16: R // 8] = [1.0, 0.0, 0.0]
+    d[R // 8: R // 4] *= rng.uniform(0.1, 3.0, (R // 8, 1)).astype(np.float32)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def test_analytic_kernel_matches_plain_on_random_rays(cuda):
+    """Random rays against a scene of every kind, over more than one row
+    chunk of each (K8 stages 512 spheres or planes, 256 cylinders)."""
+    rng = np.random.default_rng(11)
+    sph, pla, cyl = _random_analytic(rng, 700, 530, 300)
+    data = _analytic_scene(cuda, sph, pla, cyl)
+    o, d = _random_analytic_rays(rng, 20003, cuda)
+    kind = _check_analytic(data, o, d, seed=2)[0]
+    assert set(kind.unique().tolist()) == {
+        shade.KIND_SPHERE, shade.KIND_PLANE, shade.KIND_CYL}
+
+
+@pytest.mark.parametrize("case", ["ties", "inside", "parallel",
+                                  "planes_only"])
+def test_analytic_kernel_hand_cases(cuda, case):
+    """Exact ties (two identical spheres: the lower index; a sphere and a
+    plane at the same t: the sphere), origins inside spheres (the t1
+    root), rays parallel to a plane and to a cylinder's axis, and a scene
+    of planes alone."""
+    rng = np.random.default_rng(13)
+    o, d = _random_analytic_rays(rng, 4000, cuda)
+    if case == "ties":
+        data = _analytic_scene(
+            cuda, [((0, 0, 0), 1.0), ((0, 0, 0), 1.0), ((3, 0, 0), 1.0)],
+            [((0, 1, 0), (0, 1, 0))])
+        # straight down onto the spheres' tops, which touch the plane: t = 4
+        o[:64] = torch.tensor([0.0, 5.0, 0.0], device=cuda)
+        o[64:128] = torch.tensor([3.0, 5.0, 0.0], device=cuda)
+        d[:128] = torch.tensor([0.0, -1.0, 0.0], device=cuda)
+        kind, idx, _, t = _check_analytic(data, o, d, seed=3)
+        assert bool((kind[:128] == shade.KIND_SPHERE).all())
+        assert bool((idx[:64] == 0).all()) and bool((idx[64:128] == 2).all())
+        assert bool((t[:128] == 4.0).all())
+    elif case == "inside":
+        sph, _, _ = _random_analytic(rng, 40, 0, 0)
+        data = _analytic_scene(cuda, sph, [((0, -6, 0), (0, 1, 0))])
+        c = data.sphere_center[torch.arange(4000, device=cuda) % 40]
+        o = (c + (torch.rand((4000, 3), device=cuda) - 0.5) * 0.2)
+        kind, idx, _, _ = _check_analytic(data, o.contiguous(), d, seed=4)
+        assert float((kind == shade.KIND_SPHERE).float().mean()) > 0.9
+    elif case == "parallel":
+        data = _analytic_scene(
+            cuda, [((0, 3, 0), 0.5)], [((0, -1, 0), (0, 1, 0)),
+                                       ((0, 0, -6), (0, 0, 1))],
+            [((0, 0, 0), (0, 1, 0), 1.0, 2.0), ((3, 0, 0), (1, 0, 0), 0.5,
+                                                 1.0)])
+        # along y through the first cylinder (its axis), along x in the
+        # plane y = -1's direction, along x through the second's axis
+        o[:200, 0] = torch.rand(200, device=cuda) * 1.6 - 0.8
+        o[200:400, 1] = torch.rand(200, device=cuda) * 4 - 2
+        d[:200] = torch.tensor([0.0, 1.0, 0.0], device=cuda)
+        d[200:400] = torch.tensor([1.0, 0.0, 0.0], device=cuda)
+        _check_analytic(data, o, d, seed=5)
+    else:
+        _, pla, _ = _random_analytic(rng, 0, 7, 0)
+        data = _analytic_scene(cuda, planes=pla)
+        kind = _check_analytic(data, o, d, seed=6)[0]
+        assert set(kind.unique().tolist()) == {shade.KIND_MISS,
+                                               shade.KIND_PLANE}
+
+
+def test_analytic_kernel_replays_in_a_graph(cuda):
+    """Both modes captured in one CUDA graph and replayed on new rays give
+    what they give eagerly."""
+    rng = np.random.default_rng(17)
+    data = _analytic_scene(cuda, *_random_analytic(rng, 90, 4, 9))
+    o, d = _random_analytic_rays(rng, 3000, cuda)
+    dist = torch.rand(3000, device=cuda) * 20
+    cast = torch.rand(3000, device=cuda) > 0.3
+    ana16 = shade.pack_ana16(data)
+    run = lambda: (*tr._closest_analytic(data, o, d, ana16),  # noqa: E731
+                   tr._analytic_occlusion(data, o, d, dist, cast, ana16))
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    o2, d2 = _random_analytic_rays(rng, 3000, cuda)
+    o.copy_(o2)
+    d.copy_(d2)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = run()
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+
+
+def test_analytic_wrappers_reject_bad_inputs(cuda):
+    rng = np.random.default_rng(19)
+    data = _analytic_scene(cuda, *_random_analytic(rng, 5, 2, 1))
+    o, d = _random_analytic_rays(rng, 256, cuda)
+    ana16 = shade.pack_ana16(data)
+    counts = (5, 2, 1)
+    dist = torch.ones(256, device=cuda)
+    with pytest.raises(ValueError, match="ana16"):
+        ca.closest_analytic(o, d, ana16[:7].contiguous(), counts)
+    with pytest.raises(ValueError, match="ana16"):
+        ca.closest_analytic(o, d, ana16[:, :8].contiguous(), counts)
+    with pytest.raises(ValueError, match="o "):
+        ca.closest_analytic(o[:, :2].contiguous(), d[:, :2].contiguous(),
+                            ana16, counts)
+    with pytest.raises(ValueError, match="cast"):
+        ca.analytic_anyhit(o, d, dist, dist, ana16, counts)
+    with pytest.raises(ValueError, match="dist"):
+        ca.analytic_anyhit(o, d, dist[:100], None, ana16, counts)
 
 
 # --- CUDA graphs (ops/graphs.py): graphed entry points against eager ------
