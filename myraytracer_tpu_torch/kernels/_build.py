@@ -72,7 +72,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mrt_phase1_exact": [_P] * 6 + [_I] * 3 + [_P],
     "mrt_cluster_scan": [_P] * 13 + [_I] * 5 + [_P],
-    "mrt_shade_pre": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 9,
+    "mrt_shade_pre": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 11,
     "mrt_shade_phong": [_P] * 15 + [_I] * 3 + [_P] * 5,
     "mrt_seg_fwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
     "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
@@ -100,7 +100,8 @@ _SMEM_SIZES = {
 _lib = None
 
 #: dtype of a check_inputs argument, by the letter its name ends in
-_DTYPES = {"f": torch.float32, "i": torch.int32, "b": torch.bool}
+_DTYPES = {"f": torch.float32, "i": torch.int32, "b": torch.bool,
+           "l": torch.int64}
 
 
 def reset_launches() -> None:
@@ -218,7 +219,8 @@ def launch(entry: str, counter: str, device: torch.device, *args) -> None:
 def check_inputs(name: str, device: torch.device, widths=None,
                  **tensors) -> None:
     """Raise unless every tensor is contiguous, on ``device``, with the
-    dtype its name ends in (``_f`` float32, ``_i`` int32, ``_b`` bool),
+    dtype its name ends in (``_f`` float32, ``_i`` int32, ``_b`` bool,
+    ``_l`` int64),
     and unless each tensor named in ``widths`` is a [N, width] table."""
     for key, t in tensors.items():
         want = _DTYPES[key[-1]]

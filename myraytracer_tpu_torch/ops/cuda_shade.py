@@ -18,6 +18,14 @@ Whitted segment, for every primitive kind and for textured meshes:
 
 Each wrapper runs its ``*_plain`` version for CPU tensors and launches
 its kernel for CUDA tensors.
+
+K3 also keeps its segment's counters where it is given them (``counts``,
+an int64 [3] tensor on the rays' device, added to in place): the rays
+that enter the segment alive (``live``), and, where the 0-d bool
+``cond`` holds (or ``cond`` is None), one body run and its R rays. The
+kernel adds them with atomics inside its own launch, so a captured
+graph counts on every replay with no node of its own
+(ops/tracer.live_rays).
 """
 
 from __future__ import annotations
@@ -68,10 +76,20 @@ def _atlas_hi(atlas_size: int) -> int:
     return max(int(atlas_size) - 1, 0)
 
 
+def _count_plain(counts, live, cond) -> None:
+    """K3's counters: live rays; where ``cond`` holds, a body and its rays."""
+    ran = (torch.ones((), dtype=torch.int64, device=live.device)
+           if cond is None else cond.to(torch.int64))
+    counts += torch.stack([(live > 0).sum(), ran, ran * live.shape[0]])
+
+
 def shade_pre_plain(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16,
-                    mat16, light_pos, atlas_size: int = 1):
+                    mat16, light_pos, atlas_size: int = 1, counts=None,
+                    cond=None):
     """Plain version of K3; arguments and results as :func:`shade_pre`."""
     atlas_hi = _atlas_hi(atlas_size)
+    if counts is not None:
+        _count_plain(counts, live, cond)
     ox, oy, oz = o.unbind(1)
     dx, dy, dz = d.unbind(1)
     valid = kind > 0
@@ -196,7 +214,7 @@ def shade_pre_plain(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16,
 
 
 def shade_pre(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16, mat16,
-              light_pos, atlas_size: int = 1):
+              light_pos, atlas_size: int = 1, counts=None, cond=None):
     """Resolve + shadow setup for a flat ray batch (K3 on CUDA tensors).
 
     Args: o, d [R, 3] f32; t [R] f32 closest-hit distance (INF on miss);
@@ -205,7 +223,10 @@ def shade_pre(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16, mat16,
     ana16 row of an analytic hit (each in range; the kernel reads them
     unchecked, and only for rays of their kind); tri_pack [T, 32 or 48]
     f32; ana16 [A, 16] f32; mat16 [Mt, 16] f32; light_pos [L, 3] f32;
-    atlas_size: rows of the texture atlas (below 2^24, else ValueError).
+    atlas_size: rows of the texture atlas (below 2^24, else ValueError);
+    counts: None or the segment's int64 [3] counters (live rays, bodies
+    run, their rays), added to in place; cond: None or a 0-d bool, the
+    segment's condition (a body and its rays count only where it holds).
     Returns (point [R, 3], normal [R, 3], mid [R] i32, texid [R] i32 the
     atlas row of a textured triangle hit and -1 elsewhere, so [L*R, 4],
     sd [L*R, 4], st [L*R], sact [L*R] i32): the shadow batch in
@@ -213,14 +234,21 @@ def shade_pre(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16, mat16,
     """
     if o.device.type == "cpu":
         return shade_pre_plain(o, d, t, kind, live, tri_idx, aidx, tri_pack,
-                               ana16, mat16, light_pos, atlas_size)
+                               ana16, mat16, light_pos, atlas_size, counts,
+                               cond)
     atlas_hi = _atlas_hi(atlas_size)
     dev = o.device
     _build.check_inputs("shade_pre", dev, widths=dict(ana16_f=16, mat16_f=16),
                         o_f=o, d_f=d, t_f=t, kind_i=kind,
                         live_i=live, tri_idx_i=tri_idx, aidx_i=aidx,
                         tri_pack_f=tri_pack, ana16_f=ana16, mat16_f=mat16,
-                        light_pos_f=light_pos)
+                        light_pos_f=light_pos, **{
+                            k: v for k, v in (("counts_l", counts),
+                                              ("cond_b", cond))
+                            if v is not None})
+    if counts is not None and counts.shape != (3,):
+        raise ValueError(f"shade_pre: counts must be [3], got "
+                         f"{tuple(counts.shape)}")
     R, L = o.shape[0], light_pos.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -239,7 +267,9 @@ def shade_pre(o, d, t, kind, live, tri_idx, aidx, tri_pack, ana16, mat16,
                   light_pos.data_ptr(), mat16.data_ptr(), mat16.shape[0],
                   atlas_hi, L, R, point.data_ptr(), normal.data_ptr(),
                   mid.data_ptr(), texid.data_ptr(), so.data_ptr(),
-                  sd.data_ptr(), st.data_ptr(), sact.data_ptr())
+                  sd.data_ptr(), st.data_ptr(), sact.data_ptr(),
+                  None if counts is None else counts.data_ptr(),
+                  None if cond is None else cond.data_ptr())
     return point, normal, mid, texid, so, sd, st, sact
 
 

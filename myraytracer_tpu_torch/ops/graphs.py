@@ -40,6 +40,13 @@ conditional segment under a CUDA-graph IF node (:func:`if_node`):
             path.
   size      at most :data:`MAX_GRAPHS` keys; the least recently used is
             evicted first and its graph and memory pool released.
+  counters  a region may keep counts on the device (:func:`counter`):
+            small int64 tensors that its kernels add to in place. Each
+            key's own are made at its warm-up, so its graphs add to them
+            on every replay with no node of their own; the calls run
+            eagerly keep one set per entry point's name. They are read
+            on the host (:func:`counters`) after a synchronise, never on
+            a call's path; an evicted key's go with it.
   tracing   host spans (``utils/profiling.span``) around a call's work,
             each carrying the entry point's name: ``mrt.graphs.key``
             (the key and the cache lookup), ``.stage``, ``.launch`` (a
@@ -190,6 +197,9 @@ class _Entry:
     generation: int = 0
     #: the entry point's name (the key's first part)
     name: str = ""
+    #: its counters (:func:`counter`), by (what, shape, device)
+    counters: Dict[tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
 
 _CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
@@ -219,6 +229,10 @@ _UNCOUNTED: Dict[int, _Graph] = {}
 #: last
 _BODY_SITES: List[str] = []
 _disabled = 0
+#: the counters of the calls run eagerly, by entry point's name
+_EAGER_COUNTERS: Dict[str, Dict[tuple, torch.Tensor]] = {}
+#: the counters of the calls whose regions run now, innermost last
+_OWNERS: List[Dict[tuple, torch.Tensor]] = []
 
 
 @contextlib.contextmanager
@@ -248,9 +262,45 @@ def captured() -> int:
 
 
 def clear() -> None:
-    """Drop every key, releasing its graph and pool."""
+    """Drop every key, releasing its graph and pool, and every counter."""
     while _CACHE:
         _release(_CACHE.popitem(last=False)[1])
+    _EAGER_COUNTERS.clear()
+
+
+@contextlib.contextmanager
+def _owning(counters: Dict[tuple, torch.Tensor]):
+    """The block's regions keep their counters in ``counters``."""
+    _OWNERS.append(counters)
+    try:
+        yield
+    finally:
+        _OWNERS.pop()
+
+
+def counter(what: str, shape: tuple, device) -> Optional[torch.Tensor]:
+    """The int64 tensor ``what`` of ``shape`` on ``device`` that the call
+    of :func:`run` whose region runs now owns (zeros when first asked
+    for), for the region's kernels to add to in place; None outside
+    every region. A key asks for its counters at its warm-up, so a
+    capture finds them made and its graph adds to them on every
+    replay."""
+    if not _OWNERS:
+        return None
+    device = torch.device(device)
+    k = (what, tuple(shape), device)
+    held = _OWNERS[-1]
+    if k not in held:
+        held[k] = torch.zeros(shape, dtype=torch.int64, device=device)
+    return held[k]
+
+
+def counters(name: str, what: str) -> List[torch.Tensor]:
+    """Every counter ``what`` that the calls of the entry point ``name``
+    keep: each cached key's and the eager calls'."""
+    sets = [e.counters for e in _CACHE.values() if e.name == name]
+    sets.append(_EAGER_COUNTERS.get(name, {}))
+    return [t for held in sets for (w, _, _), t in held.items() if w == what]
 
 
 def _release(entry: _Entry) -> None:
@@ -371,7 +421,8 @@ def run(name: str, fn: Callable, device, static=(),
     """
     device = torch.device(device)
     if runs_eagerly(device, group):
-        return fn(*(s.to(device) for s in staged))
+        with _owning(_EAGER_COUNTERS.setdefault(name, {})):
+            return fn(*(s.to(device) for s in staged))
     with span("graphs.key", name):
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -382,7 +433,7 @@ def run(name: str, fn: Callable, device, static=(),
             torch.empty(s.shape, dtype=s.dtype, device=device)
             .requires_grad_(records_grad and s.requires_grad)
             for s in staged), name=name)
-        with _set_up("warm_up", name, device):
+        with _set_up("warm_up", name, device), _owning(entry.counters):
             if records_grad:
                 # an ordinary autograd result, reaching the caller's inputs
                 out = _warm_up(lambda: fn(*(s.to(device) for s in staged)),
@@ -401,7 +452,7 @@ def run(name: str, fn: Callable, device, static=(),
     if entry.forward is None:
         def region():
             entry.outputs = fn(*entry.staged)
-        with _set_up("capture", name, device):
+        with _set_up("capture", name, device), _owning(entry.counters):
             entry.forward, entry.body_pool = _capture(name, region, device,
                                                       group is not None)
         COUNTS["captures"] += 1
@@ -424,9 +475,10 @@ def _run_grad(name: str, fn: Callable, entry: _Entry, held, staged,
     their memory)."""
     if _pending(entry):
         COUNTS["pending_eager"] += 1
-        return fn(*(s.to(entry.device) for s in staged))
+        with _owning(entry.counters):
+            return fn(*(s.to(entry.device) for s in staged))
     if entry.forward is None:
-        with _set_up("capture", name, entry.device):
+        with _set_up("capture", name, entry.device), _owning(entry.counters):
             _capture_grad(name, fn, entry, held, staged, collective)
     return _Differentiable.apply(entry, len(staged), *staged,
                                  *(t for t in held if t.requires_grad))

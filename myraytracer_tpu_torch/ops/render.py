@@ -29,7 +29,8 @@ same graph. ``graphs.disable_graphs()`` runs them eagerly; CPU tensors
 always do.
 
 Each entry point's call is a host span (``mrt.render``, ``mrt.render_aa``,
-``mrt.aa_refine``; utils/profiling.span) and the device work inside its
+``mrt.aa_refine``; utils/profiling.span), :data:`CALLS` counts the calls
+of ``render_aa``, and the device work inside its
 graphs is split by phase marks (``rays``, ``aa.select``, ``aa.apply``,
 the training step's ``refit``, ``topology``, ``replay`` and
 ``backward``, and the trace's own; utils/profiling.mark).
@@ -67,6 +68,10 @@ from myraytracer_tpu_torch.utils.profiling import mark, span
 
 #: screen-block edge of the primary ray order
 BLOCK = 32
+
+#: calls of ``render_aa`` so far: what the segment counters of its graphs
+#: ``render`` and ``aa_refine`` (tracer.live_rays) are divided by per frame
+CALLS = {"render_aa": 0}
 
 #: adaptive supersampling: subpixel grid edge and deviation threshold
 AA_SUBP = 4
@@ -355,6 +360,7 @@ def render_aa(scene, camera: Camera, cfg: tr.TraceConfig = tr.TraceConfig(),
     card, as the reference's two jits: pass 1 (:func:`render`'s) and the
     refine. No gradient, the nearest texel (:func:`forward_only`).
     """
+    CALLS["render_aa"] += 1
     with span("render_aa"):
         img1 = render(scene, camera, cfg, tile)
         return _aa_refine(scene, camera, img1, cfg, tile, subp, threshold,

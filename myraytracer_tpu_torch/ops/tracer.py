@@ -55,6 +55,18 @@ runs and a ``torch.where`` keeps or drops its result (:func:`_select`),
 and so do the backward's cotangents. Segment 0 of a fresh carry has
 every ray alive (weight 1), so it takes neither.
 
+Segment counters: inside an entry point's region (``graphs.run``), K3
+adds to the region's int64 [S, 3] counters (``graphs.counter``
+"tracer.segments") the rays that enter segment s alive and, where the
+segment's condition holds (segment 0 always), one body run and its
+rays: on the card within its own launch, so a replay counts with no
+node of its own, on the CPU in the plain version. A skipped body counts
+nothing; a segment run eagerly while no ray is alive counts no live ray
+and no body, as the replay would. :func:`live_rays`,
+:func:`segments_run` and :func:`rays_run` read them per entry point
+(``render``, ``aa_refine``, ...), with a synchronise: after a call,
+never on its path.
+
 Device phase marks (utils/profiling.mark) split a segment's device time:
 ``segment`` at its start (inside an IF node's body for segments 1..,
 so a skipped segment leaves no mark), ``analytic`` before the dense
@@ -390,10 +402,22 @@ def shadow_mask(scene, pack: TracePack, so, sd, st, sact,
     return shadow.to(torch.int32)
 
 
+#: the columns of a segment's counters: the rays that enter it alive, the
+#: bodies of it that ran, the rays of those bodies
+LIVE, RAN, RAYS = 0, 1, 2
+#: what the counters are called in their region (graphs.counter)
+COUNTERS = "tracer.segments"
+
+
 def segment_step(scene, pack: TracePack, carry: Bounce,
-                 cfg: TraceConfig = TraceConfig()):
+                 cfg: TraceConfig = TraceConfig(), seg: int = 0,
+                 cond: Optional[torch.Tensor] = None):
     """One Whitted segment -> (next bounce with its color added, the
-    segment's topology record (kind, idx, hit, miss, shadow))."""
+    segment's topology record (kind, idx, hit, miss, shadow)).
+
+    ``seg`` is the segment's index and ``cond`` its condition (None for
+    segment 0, else the 0-d bool ``(weight > 0).any()`` of the carry):
+    K3 counts the segment in the counters of the region that runs it."""
     mark("segment", carry.o.device)
     R = carry.o.shape[0]
     L = scene.n_lights
@@ -410,11 +434,13 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
 
     pre = cs.shade_pre_plain if cfg.plain else cs.shade_pre
     geom = pack.geom
+    counts = graphs.counter(COUNTERS, (scene.n_segments, 3), o.device)
     mark("shade", o.device)
     point, normal, mid, texid, so, sd, st, sact = pre(
         o, d, t.contiguous(), kind, live_i, tri_idx,
         torch.where(valid, aidx, zero_i).contiguous(), geom.tri_pack,
-        geom.ana16, geom.mat16, scene.light_pos, scene.texels.shape[0])
+        geom.ana16, geom.mat16, scene.light_pos, scene.texels.shape[0],
+        None if counts is None else counts[seg], cond)
 
     shadow = shadow_mask(scene, pack, so, sd, st, sact, cfg).reshape(L, R)
 
@@ -510,14 +536,15 @@ def trace(scene, o: torch.Tensor, d: torch.Tensor,
                    color=torch.zeros((R, 3), device=o.device))
     branches = _branches(scene, o.device)
     for s in range(scene.n_segments):
+        alive = (carry.weight > 0.0).any() if s else None
         if s and branches:
-            _branch((carry.weight > 0.0).any(),
-                    lambda: segment_step(scene, pack, carry, cfg)[0], carry,
-                    f"segment {s} of trace")
+            _branch(alive,
+                    lambda: segment_step(scene, pack, carry, cfg, s, alive)[0],
+                    carry, f"segment {s} of trace")
             continue
-        nxt, _ = segment_step(scene, pack, carry, cfg)
+        nxt, _ = segment_step(scene, pack, carry, cfg, s, alive)
         if s:
-            nxt = _select((carry.weight > 0.0).any(), nxt, carry)
+            nxt = _select(alive, nxt, carry)
         carry = _owned(nxt) if branches else nxt
     return carry.color
 
@@ -540,16 +567,17 @@ def trace_topology(scene, o: torch.Tensor, d: torch.Tensor,
     branches = _branches(scene, o.device)
     records = []
     for s in range(scene.n_segments):
+        alive = (carry.weight > 0.0).any() if s else None
         if s and branches:
             rec = _dead(R, L, dev)
-            _branch((carry.weight > 0.0).any(),
-                    lambda: _flat(segment_step(scene, pack, carry, cfg)),
+            _branch(alive,
+                    lambda: _flat(segment_step(scene, pack, carry, cfg, s,
+                                               alive)),
                     carry + rec, f"segment {s} of trace_topology")
             records.append(rec)
             continue
-        nxt, rec = segment_step(scene, pack, carry, cfg)
+        nxt, rec = segment_step(scene, pack, carry, cfg, s, alive)
         if s:
-            alive = (carry.weight > 0.0).any()
             nxt = _select(alive, nxt, carry)
             rec = _select(alive, rec, _dead(R, L, dev))
         carry = _owned(nxt) if branches else nxt
@@ -850,3 +878,44 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
                 seg, (rec[2] | rec[3]).any(),
                 *(t.contiguous() for t in carry), *tensors))
     return carry.color
+
+
+def _tally(entry: str) -> Optional[torch.Tensor]:
+    """The segment counters of every call of the entry point ``entry`` so
+    far, summed on the host -> int64 [S, 3] (S the most segments of its
+    scenes), or None where no call counted."""
+    held = graphs.counters(entry, COUNTERS)
+    if not held:
+        return None
+    out = torch.zeros((max(t.shape[0] for t in held), 3), dtype=torch.int64)
+    for t in held:
+        out[:t.shape[0]] += t.cpu()
+    return out
+
+
+def live_rays(entry: str, s: Optional[int] = None) -> int:
+    """The rays that entered segment ``s`` alive (every segment where
+    None) in the calls of the entry point ``entry`` so far (``render``,
+    ``aa_refine``, ``fit_step``, ...): the live rays K3 counted, 0 where
+    it counted none. It synchronises (a device-to-host copy), so it is
+    never called on a call's path."""
+    t = _tally(entry)
+    if t is None or (s is not None and s >= t.shape[0]):
+        return 0
+    return int(t[:, LIVE].sum() if s is None else t[s, LIVE])
+
+
+def segments_run(entry: str) -> int:
+    """The segment bodies that ran in the calls of the entry point
+    ``entry`` so far: segment 0 of each trace, and each later segment
+    whose condition held (its IF node's body ran). Synchronises."""
+    t = _tally(entry)
+    return 0 if t is None else int(t[:, RAN].sum())
+
+
+def rays_run(entry: str) -> int:
+    """The rays of the segment bodies that ran in the calls of the entry
+    point ``entry`` so far (each body runs over its whole batch, alive or
+    not). Synchronises."""
+    t = _tally(entry)
+    return 0 if t is None else int(t[:, RAYS].sum())

@@ -1500,3 +1500,47 @@ def test_collective_inside_an_if_node_fails_the_capture(nccl_mesh):
     with pytest.raises(graphs.GraphCaptureError,
                        match="a collective inside an IF node's body"):
         graphs.run("guarded", region, dev, held=[t], group=group)
+
+
+def _segment_counts(entry: str, n: int) -> tuple:
+    return ([tr.live_rays(entry, s) for s in range(n)],
+            tr.segments_run(entry), tr.rays_run(entry))
+
+
+def test_segment_counters_graphed_and_eager_equal_plain(cuda, monkeypatch):
+    """K3's segment counters on o_03's pass 1 (21 segments, rays alive to
+    the last): the kernels run eagerly and three graphed calls (the
+    warm-up, the capture's replay, a replay) count what the plain versions
+    count, call for call; the counters add no graph node."""
+    from myraytracer_tpu_torch.scenes.golden import scene_03_mirror
+
+    s = scene_03_mirror(scale=0.5)
+    data = s.build(device=cuda)
+    cfg = tr.TraceConfig(tri_method="auto")
+    S = data.n_segments
+    assert S == 21
+    graphs.clear()
+    with graphs.disable_graphs():
+        render(data, s.camera, cfg._replace(plain=True))
+    want = _segment_counts("render", S)
+    graphs.clear()
+    with graphs.disable_graphs():
+        render(data, s.camera, cfg)
+    assert _segment_counts("render", S) == want
+    graphs.clear()
+    for _ in range(3):
+        render(data, s.camera, cfg)
+    live, ran, rays = _segment_counts("render", S)
+    assert live == [3 * n for n in want[0]]
+    assert (ran, rays) == (3 * want[1], 3 * want[2])
+    assert want[1] == S and 0 < want[0][-1] < want[0][0]
+    assert graphs.nodes("render") > 0
+    nodes = graphs.nodes("render")
+    graphs.clear()
+    pre = cs.shade_pre
+    monkeypatch.setattr(cs, "shade_pre",
+                        lambda *a, counts=None, cond=None: pre(*a))
+    for _ in range(2):
+        render(data, s.camera, cfg)
+    assert graphs.nodes("render") == nodes
+    graphs.clear()
