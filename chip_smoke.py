@@ -44,7 +44,17 @@ nvcc. Phases:
      (closest hit, any hit), against their plain versions on o_04's
      pass-1 rays and on the light-major shadow batch K3 emits for their
      hits: kinds and ids equal and t to the bit, occlusion equal, both
-     times, the bound, registers, spills and SASS counts;
+     times, the bound, registers, spills and SASS counts; then K10 and
+     K11, the fused shade segment on sphere and plane hits, against their
+     plain versions on o_04's first two segments at golden resolution
+     (the recorded topology, seeded cotangents): per-ray outputs at the
+     shading bar (and how many equal to the bit), the table and
+     environment sums at the cotangent bars, K11 twice on the same
+     inputs equal to the bit and with only the fit cell's cotangents
+     (mat16, the lights, the weight) equal to the bit to those of a full
+     run, each kernel's ms of 20 launches in a graph beside the plain
+     version's and the bound in bytes over 3.35 TB/s, registers, spills
+     and SASS counts;
  11. the golden gallery: each of the ten goldens at its golden
      resolution through render_aa, warm, three times (median seconds,
      launch counts of that run, peak device memory), held against its
@@ -74,7 +84,8 @@ nvcc. Phases:
  16. training on o_04 (spheres and planes) and o_10 (textured, bilinear
      fetch) at golden resolution with "bvh": three warm steps (median
      seconds, finite loss and gradients) and three Adam steps in which
-     the loss falls;
+     the loss falls; o_04 takes the fused K10/K11 route (both launched,
+     no K5/K6), o_10 the autograd replay (neither);
  17. the CLI's render verb in process (python -m myraytracer_tpu_torch
      render): examples/demo.sce at 640x480 (sphere, cylinder, mesh,
      mirror floor, depth 3) with and without --aa, and --golden
@@ -208,8 +219,9 @@ scan's kernels were not.
      eager and graphed; device busy of a graphed and an eager call
      (torch.profiler). o_04 at 500x500 (5 pairs): 6 IF nodes in the two
      graphs, 3 bodies skipped per replay (named), loss and gradients
-     equal to eager's to the bit. o_10 at 600x300 with "bilinear" (5
-     pairs): the same bars as office.
+     equal to eager's to the bit, K10 and K11 launched twice a replayed
+     call (segments 0 and 1; their diff_launches) and K5/K6 never. o_10
+     at 600x300 with "bilinear" (5 pairs): the same bars as office.
 
 On a CUDA device the entry points replay CUDA graphs by default, so the
 phases before 23 run them graphed too: their launch counts are per
@@ -289,6 +301,14 @@ ANALYTIC_KERNELS = tuple(
      "none: the reference's tests are XLA, myraytracer_tpu/ops/tracer.py:193")
     for name in ("analytic_closest", "analytic_anyhit"))
 
+#: K10/K11, the fused shade segment on sphere and plane hits; they
+#: replace no TPU kernel
+ANA_SEG_KERNELS = tuple(
+    (name, "myraytracer_tpu_torch/csrc/shade_grad_ana.cu",
+     "none: the reference replays sphere and plane hits through autodiff "
+     "(myraytracer_tpu/ops/shade.py resolve_hit)")
+    for name in ("seg_ana_fwd", "seg_ana_bwd"))
+
 #: K3/K4's analytic and texture branches, each its own summary entry:
 #: (entry, launch counter, source, TPU kernel, the scene whose first
 #: segment compares it and whose render_aa run counts its launches)
@@ -340,7 +360,9 @@ SYMBOLS = {"phase1_exact": "phase1_exact_kernel",
            "bvh_walk_closest": "bvh_walk_kernelILb0E",
            "bvh_walk_anyhit": "bvh_walk_kernelILb1E",
            "analytic_closest": "analytic_kernelILb0E",
-           "analytic_anyhit": "analytic_kernelILb1E"}
+           "analytic_anyhit": "analytic_kernelILb1E",
+           "seg_ana_fwd": "seg_ana_fwd_kernel",
+           "seg_ana_bwd": "seg_ana_bwd_kernel"}
 
 #: the training scenes of phase 16 with their texture fetch
 TRAIN_GOLDENS = (("o_04_molecule", "nearest"), ("o_10_pokemon", "bilinear"))
@@ -1103,6 +1125,108 @@ def compare_analytic(scenes, dev, report, ptxas, sass):
         report[name] = rep
 
 
+def compare_ana_segment(scenes, dev, report, ptxas, sass):
+    """Phase 10, K10/K11: the fused shade segment on o_04's sphere and
+    plane hits against its plain versions, on the first two segments of
+    the recorded topology at golden resolution."""
+    import torch
+
+    from myraytracer_tpu_torch.kernels import library
+    from myraytracer_tpu_torch.ops import shade
+    from myraytracer_tpu_torch.ops import shade_grad_ana as sga
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
+    from myraytracer_tpu_torch.ops.render import primary_rays_blocked
+
+    scene, data = scenes["o_04_molecule"]
+    o, d = primary_rays_blocked(scene.camera, dev)
+    with disable_graphs():
+        topo = tr.trace_topology(data, o, d)
+    geom = shade.pack_shade_geom(data)
+    R, L = o.shape[0], data.n_lights
+    counts = (data.n_spheres, data.n_planes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    carry = (o, d, torch.ones(R, device=dev))
+    # the fit cell's cotangents: the weight's, mat16's and the lights'
+    cell = (False, False, True, False, True, True, True, True, True)
+    for s in (0, 1):
+        args = (*carry, geom.ana16, geom.mat16, *(
+            getattr(topo, f)[s].contiguous()
+            for f in ("kind", "idx", "hit", "miss", "shadow")),
+            data.light_pos, data.light_color, data.ambience, data.background)
+        fwd = sga.segment_ana_fwd(*args, counts)
+        fwd_p = sga.segment_ana_plain(*args, counts)
+        err = max(close(f"seg_ana_fwd[{s}].{nm}", a, b) for nm, a, b in
+                  zip(("add", "o2", "d2", "w2"), fwd, fwd_p))
+        n_bits = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                     for a, b in zip(fwd, fwd_p))
+        cots = [torch.randn(sh, generator=gen, device=dev)
+                for sh in ((R, 3), (R, 3), (R, 3), (R,))]
+        bwd = sga.segment_ana_bwd(*args, counts, *cots)
+        bwd_p = sga.segment_ana_bwd_plain(*args, counts, *cots)
+        worst = {}
+        for nm, a, b in zip(sga.BWD_OUTPUTS, bwd, bwd_p):
+            check(tuple(a.shape) == tuple(b.shape)
+                  and bool(torch.isfinite(a).all()),
+                  f"seg_ana_bwd[{s}].{nm}: shape or not finite")
+            bar = REL_GRAD if nm in ("ana16", "mat16") else REL_COT
+            worst[nm] = round(close_scaled(f"seg_ana_bwd[{s}].{nm}", a, b,
+                                           bar), 9)
+        again = sga.segment_ana_bwd(*args, counts, *cots)
+        check(all(torch.equal(a, b) for a, b in zip(bwd, again)),
+              f"seg_ana_bwd[{s}]: two runs differ")
+        part = sga.segment_ana_bwd(*args, counts, *cots, need=cell)
+        check(all((a is None) if not n else torch.equal(a, b)
+                  for a, b, n in zip(part, bwd, cell)),
+              f"seg_ana_bwd[{s}]: the fit cell's cotangents differ from a "
+              f"full run's")
+        hits = int(args[7].sum())
+        print(f"seg_ana[{s}]: o_04 {R} rays, {hits} hits, {L} lights: "
+              f"forward max_abs_err={err}, {n_bits} values not equal to "
+              f"the plain version's bits; backward worst diff per "
+              f"cotangent in max|plain| {worst}; two runs equal to the "
+              f"bit; the fit cell's cotangents equal to a full run's")
+        if s == 0:
+            arow, mid = sga._rows(args[3], args[5], args[6], counts)
+            valid = args[5] != shade.KIND_MISS
+            rows_b = (rows(args[3], arow[valid]) + rows(args[4], mid[valid]))
+            ins = nbytes(*args[:3], *args[5:])
+            ops = R * (OPS_SEG_RAY + L * OPS_SEG_LIGHT)
+            report["seg_ana_fwd"] = dict(
+                max_abs_err=err,
+                ms=graph_ms(lambda: sga.segment_ana_fwd(*args, counts)),
+                plain_ms=time_ms(lambda: sga.segment_ana_plain(*args,
+                                                               counts), 3),
+                **bound(ins + rows_b + nbytes(*fwd), ops))
+            report["seg_ana_bwd"] = dict(
+                max_abs_err=max(float((a - b).abs().max())
+                                for a, b in zip(bwd, bwd_p)),
+                ms=graph_ms(lambda: sga.segment_ana_bwd(*args, counts,
+                                                        *cots)),
+                cell_ms=graph_ms(lambda: sga.segment_ana_bwd(
+                    *args, counts, *cots, need=cell)),
+                plain_ms=time_ms(lambda: sga.segment_ana_bwd_plain(
+                    *args, counts, *cots), 3),
+                **bound(ins + rows_b + nbytes(*cots, *bwd),
+                        BWD_OVER_FWD * ops))
+            for k in ("seg_ana_fwd", "seg_ana_bwd"):
+                rep = report[k]
+                print(f"{k}: {rep['ms']:.4f} ms against a bound of "
+                      f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}); plain "
+                      f"{rep['plain_ms']:.2f} ms"
+                      + (f"; with only the fit cell's cotangents "
+                         f"{rep['cell_ms']:.4f} ms" if "cell_ms" in rep
+                         else ""))
+            report["seg_ana_fwd"].update(resources("seg_ana_fwd", ptxas),
+                                         **sass_counts("seg_ana_fwd", sass))
+            report["seg_ana_bwd"].update(
+                resources("seg_ana_bwd", ptxas, library().mrt_seg_ana_bwd_smem(
+                    L, geom.mat16.shape[0], geom.ana16.shape[0], 1, 1, 1)),
+                **sass_counts("seg_ana_bwd", sass))
+        carry = fwd[1:]
+
+
 def timed(fn, reps: int = 3):
     """(result, seconds per call, launches of those calls) after one warm
     call; the counts are set to 0 just before the timed calls. The
@@ -1454,9 +1578,10 @@ def gallery_bvh(scenes):
             check(launches[k] == 0, f"bvh {name}: {k} was launched")
 
 
-def train_goldens(scenes):
-    """Phase 16: the training step on o_04 (spheres, planes) and o_10
-    (textured, bilinear fetch) at golden resolution with "bvh"."""
+def train_goldens(scenes, report):
+    """Phase 16: the training step on o_04 (spheres, planes; the K10/K11
+    route) and o_10 (textured, bilinear fetch; the autograd replay) at
+    golden resolution with "bvh"."""
     import torch
 
     from myraytracer_tpu_torch.ops import tracer as tr
@@ -1466,10 +1591,20 @@ def train_goldens(scenes):
         scene, data = scenes[name]
         cam = scene.camera
         cfg = tr.TraceConfig(tri_method="bvh", texture_filter=filt)
-        check(not cfg.fused_grad(data), f"{name}: takes the fused segment")
+        route = cfg.replay_route(data)
+        check(route == ("fused_ana" if name == "o_04_molecule"
+                        else "autograd"), f"{name}: takes the {route} route")
         target = 0.9 * render(data, cam, cfg=cfg) + 0.02
         (loss, grads), secs, launches = timed(
             lambda: render_loss_grad_image(data, cam, target, cfg=cfg))
+        ana = route == "fused_ana"
+        check(all((launches[k] > 0) == ana
+                  for k in ("seg_ana_fwd", "seg_ana_bwd"))
+              and launches["seg_fwd"] == launches["seg_bwd"] == 0,
+              f"{name}: launches {launches} on the {route} route")
+        if ana:
+            for k in ("seg_ana_fwd", "seg_ana_bwd"):
+                report[k]["launches"] = launches[k]
         check(bool(torch.isfinite(loss)), f"{name}: loss {float(loss)}")
         check(len(grads) == 23, f"{name}: {len(grads)} gradient keys")
         for k, g in grads.items():
@@ -3011,6 +3146,13 @@ def graphed_diff(report: dict, dev: str, tess: int = 10,
                 f"{what}: loss or gradients differ from eager's bits")
             print(f"graphs {what}: loss and 23 gradients equal to eager's "
                   f"to the bit")
+            ana = {k: r["launches"].get(k, 0) for k in (
+                "seg_ana_fwd", "seg_ana_bwd", "seg_fwd", "seg_bwd")}
+            check(ana == {"seg_ana_fwd": 2, "seg_ana_bwd": 2, "seg_fwd": 0,
+                          "seg_bwd": 0}, f"{what}: shade segment launches "
+                  f"per replayed call {ana}")
+            for k in ("seg_ana_fwd", "seg_ana_bwd"):
+                report[k]["diff_launches"] = r["launches"][k]
         want, secs_w, _ = graphed_walls(
             lambda: render_loss_grad_image(gdata, cam, target, cfg=cfg))
         vs_step = same_loss_grads_as(f"{what} vs the training step",
@@ -3121,12 +3263,13 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     scenes = build_gallery(dev)
     compare_branch_kernels(scenes, dev, report)
     compare_analytic(scenes, dev, report, ptxas, sass)
+    compare_ana_segment(scenes, dev, report, ptxas, sass)
     gallery(scenes, dev, report)
     office_aa(data, scene.camera)
     compare_bvh_walk(data, scene.camera, report, ptxas, sass)
     office_bvh(data, scene.camera, report)
     gallery_bvh(scenes)
-    train_goldens(scenes)
+    train_goldens(scenes, report)
     del scenes
     cli_render(dev)
     fit_office(data, scene.camera)
@@ -3206,7 +3349,7 @@ def main(argv=None) -> int:
         sass = None
     report = run(kernels.kernel_resources(log), sass)
     entries = [(n, src, rep) for n, src, rep in
-               KERNELS + BVH_KERNELS + ANALYTIC_KERNELS] + [
+               KERNELS + BVH_KERNELS + ANALYTIC_KERNELS + ANA_SEG_KERNELS] + [
         (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,
                     **report[name]) for name, src, rep in entries]

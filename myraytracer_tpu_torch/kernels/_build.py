@@ -48,7 +48,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: sources built without FMA contraction (see the module docstring)
-NO_FMA = ("analytic.cu", "bvh_walk.cu", "shade.cu", "shade_grad.cu")
+NO_FMA = ("analytic.cu", "bvh_walk.cu", "shade.cu", "shade_grad.cu",
+          "shade_grad_ana.cu")
 
 #: kernel launches so far, per kernel; a wrapper adds one where it
 #: launches its kernel and nowhere else (reset with reset_launches)
@@ -60,6 +61,8 @@ LAUNCHES = {
     "shade_phong": 0,
     "seg_fwd": 0,
     "seg_bwd": 0,
+    "seg_ana_fwd": 0,
+    "seg_ana_bwd": 0,
     "bvh_walk_closest": 0,
     "bvh_walk_anyhit": 0,
     "analytic_closest": 0,
@@ -76,6 +79,8 @@ _SIGNATURES = {
     "mrt_shade_phong": [_P] * 15 + [_I] * 3 + [_P] * 5,
     "mrt_seg_fwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
     "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
+    "mrt_seg_ana_fwd": [_P] * 14 + [_I] * 4 + [_P] * 5,
+    "mrt_seg_ana_bwd": [_P] * 18 + [_I] * 6 + [_P] * 9,
     "mrt_bvh_walk": [_P] * 9 + [_I] * 4 + [_P],
     "mrt_analytic": [_P] * 10 + [_I] * 6 + [_P],
     # CUDA-graph IF nodes (graph_cond.cu; ops/graphs.if_node): pred,
@@ -95,6 +100,13 @@ _SMEM_SIZES = {
     "mrt_phase1_exact_smem": [_I],
     "mrt_cluster_scan_smem": [_I],
     "mrt_seg_bwd_smem": [_I],
+    "mrt_seg_ana_bwd_smem": [_I] * 6,
+}
+
+#: C helpers that give a kernel's workspace in 4-byte words from its shape
+#: arguments (a long long)
+_WORKSPACE_SIZES = {
+    "mrt_seg_ana_bwd_workspace": [_I] * 7,
 }
 
 _lib = None
@@ -191,6 +203,12 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_size_t
+        for name, argtypes in _WORKSPACE_SIZES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
+        lib.mrt_seg_ana_bwd_counters.argtypes = [_I]
+        lib.mrt_seg_ana_bwd_counters.restype = ctypes.c_int
         for name in ("mrt_bvh_walk_threads", "mrt_mark_phases"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int

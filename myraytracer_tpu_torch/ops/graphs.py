@@ -30,6 +30,13 @@ conditional segment under a CUDA-graph IF node (:func:`if_node`):
             The second call captures and replays; later calls replay.
   outputs   cloned before they are returned, so two results that a caller
             keeps never alias (jit returns fresh arrays).
+  tallies   host-side counts a region keeps of what it chose
+            (:func:`tally`, e.g. the training replay's route per
+            segment) go to :data:`TALLIES`: a call run eagerly adds them
+            as it runs, a captured graph the counts its capture made, at
+            each replay (:func:`tallies` gives them), as the launches
+            below. A tally inside an IF node's body counts as if the
+            body ran.
   launches  ``kernels/_build.LAUNCHES`` gains, per replay, the launches
             that the capture recorded outside IF nodes; the capture
             itself adds none. An IF node's body runs or not by a value
@@ -172,6 +179,8 @@ class _Graph:
     bodies: List[_Body]                 # its IF nodes' bodies
     nodes: int = 0                      # its nodes outside IF nodes' bodies
     label: str = ""                     # its launch span's entry point
+    #: what its capture added to TALLIES, added again at each replay
+    tallies: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -218,6 +227,8 @@ COUNTS = {"warm_ups": 0, "captures": 0, "replays": 0, "if_nodes": 0,
 #: and the captures (a differentiable region's two), each to a
 #: synchronise of its device. No replay adds to them.
 SECONDS = {"warm_up": 0.0, "capture": 0.0}
+#: the regions' host-side counts so far (:func:`tally`), by name
+TALLIES: Dict[str, int] = collections.Counter()
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 #: the streams that IF nodes' bodies are captured on
 _BODY_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
@@ -344,6 +355,23 @@ def nodes(label: str) -> int:
             if g is not None and g.label == label:
                 return g.nodes + sum(b.nodes for b in g.bodies)
     return 0
+
+
+def tally(name: str) -> None:
+    """Add one to the host-side count ``name`` (:data:`TALLIES`); under a
+    capture, to what each replay of the graph adds to it."""
+    TALLIES[name] += 1
+
+
+def tallies(label: str) -> Dict[str, int]:
+    """What one replay of the captured graph of the entry point ``label``
+    (as :func:`nodes` names it) used last adds to :data:`TALLIES`; empty
+    where no such graph is captured."""
+    for entry in reversed(_CACHE.values()):
+        for g in (entry.forward, entry.backward):
+            if g is not None and g.label == label:
+                return dict(g.tallies)
+    return {}
 
 
 @contextlib.contextmanager
@@ -646,6 +674,8 @@ def _replay(g: _Graph) -> None:
         g.graph.replay()
         for k, n in g.launches.items():
             _build.LAUNCHES[k] += n
+        for k, n in g.tallies.items():
+            TALLIES[k] += n
         if g.bodies:
             _UNCOUNTED[id(g)] = g
 
@@ -709,6 +739,7 @@ def _capture(name: str, region: Callable[[], None], device: torch.device,
     could invalidate the capture from that thread."""
     global _RECORDING
     before = dict(_build.LAUNCHES)
+    before_tallies = collections.Counter(TALLIES)
     rec = _RECORDING = _Recording(device, body_pool)
     try:
         graph = _record(region, pool,
@@ -726,10 +757,14 @@ def _capture(name: str, region: Callable[[], None], device: torch.device,
         _RECORDING = None
         counted = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
         _build.LAUNCHES.update(before)
+        tallied = {k: v - before_tallies[k] for k, v in TALLIES.items()
+                   if v != before_tallies[k]}
+        TALLIES.clear()
+        TALLIES.update(before_tallies)
     COUNTS["if_nodes"] += len(rec.bodies)
     return _Graph(graph, {k: v for k, v in counted.items() if v},
                   rec.bodies, rec.nodes,
-                  name if label is None else label), rec.pool
+                  name if label is None else label, tallied), rec.pool
 
 
 def if_body_site() -> Optional[str]:

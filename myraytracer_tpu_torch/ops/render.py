@@ -394,8 +394,8 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
     Padded rays (o 0, d 1, target 0) carry w 0. The replay of a tile
     keeps no residual (``trace_shade(..., checkpoint=True)``): its
     autograd replay recomputes each segment in the backward, and the
-    fused K5/K6 segment (:meth:`tr.TraceConfig.fused_grad`, the
-    reference's rule) keeps only its inputs. The four stages are device
+    fused K5/K6 and K10/K11 segments (:meth:`tr.TraceConfig.replay_route`)
+    keep only their inputs. The four stages are device
     phases (``refit``, ``topology``, ``replay``, ``backward``; the
     trace's phases subdivide them) that tools/torch_profile.py reports.
     """

@@ -29,14 +29,17 @@ shading on that fixed topology, with no traversal. :func:`trace` runs
 the chain where the kernel shading equals the reference's XLA shading,
 and the two passes (the replay route) where they differ: when autograd
 records the call, and for the bilinear texel fetch on a textured scene
-(:func:`replays`). It takes the fused K5/K6 segment
-(ops/shade_grad.py) exactly where the reference's
-``resolved_fused_shade_grad`` would: triangles, no analytic primitive,
-no texture, at least one light, and ``fused_shade_grad`` set
-(:meth:`TraceConfig.fused_grad`). Every other scene takes the autograd
-replay of ``shade.resolve_hit`` + :func:`lighting_from_mask`. This is a
-choice by scene content, the reference's rule, not a fallback: K5/K6
-cover what the reference's K5/K6 cover.
+(:func:`replays`). :func:`trace_shade` takes its route by the scene's
+primitive kinds, textures and lights (:meth:`TraceConfig.replay_route`),
+with ``fused_shade_grad`` set and at least one light and no texture: the
+fused K5/K6 segment (ops/shade_grad.py) on triangles alone, exactly
+where the reference's ``resolved_fused_shade_grad`` would; the fused
+K10/K11 segment (ops/shade_grad_ana.py) on spheres and planes alone.
+Every other scene (mixed triangles and analytic primitives, cylinders,
+textures, no light) takes the autograd replay of ``shade.resolve_hit`` +
+:func:`lighting_from_mask`. This is a choice by scene content, not a
+fallback: each fused segment covers its kinds whole, and computes what
+the autograd replay computes.
 
 A segment in which no ray is alive any more yields its carry unchanged,
 as the reference's ``lax.cond`` does. The condition is a 0-d tensor on
@@ -90,6 +93,7 @@ from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import intersect as isx
 from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import shade_grad as sg
+from myraytracer_tpu_torch.ops import shade_grad_ana as sga
 from myraytracer_tpu_torch.ops import traverse as trv
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.utils import vecmath as vm
@@ -130,11 +134,12 @@ class TraceConfig(NamedTuple):
     #: run the plain PyTorch versions of the kernels, on any device
     #: (compares the kernels with them on the card)
     plain: bool = False
-    #: trace_shade replays each segment through the fused K5/K6 segment
-    #: (True) or as an autograd replay of resolve_hit + lighting_from_mask
-    #: (False, the reference's default). The reference keeps the fused
-    #: segment opt-in because a Pallas boundary re-lays out ~30 per-ray
-    #: columns on the TPU; on the GPU a thread reads its row by id.
+    #: trace_shade replays each segment through a fused segment, K5/K6 or
+    #: K10/K11 by the scene's kinds (True), or as an autograd replay of
+    #: resolve_hit + lighting_from_mask (False, the reference's default).
+    #: The reference keeps the fused segment opt-in because a Pallas
+    #: boundary re-lays out ~30 per-ray columns on the TPU; on the GPU a
+    #: thread reads its row by id.
     fused_shade_grad: bool = True
     #: phase-1 of the cluster scans: None keeps the segment hull for
     #: finite any-hit queries; "exact" sends them through K2 too. The AA
@@ -156,13 +161,31 @@ class TraceConfig(NamedTuple):
         """The triangle method that runs: "auto" is "bvh"."""
         return "bvh" if self.tri_method == "auto" else self.tri_method
 
+    def replay_route(self, scene) -> str:
+        """The route of :func:`trace_shade` on ``scene``, by its
+        primitive kinds, textures and lights; each segment it runs adds
+        one to the host tally ``"replay.<route>"`` (``graphs.tally``).
+        With ``fused_shade_grad``, a light and no texture:
+        ``"fused_tri"`` (K5/K6, the reference's
+        ``resolved_fused_shade_grad``) for triangles and no analytic
+        primitive, ``"fused_ana"`` (K10/K11) for spheres or planes and no
+        triangle or cylinder. ``"autograd"`` (the autograd replay)
+        otherwise."""
+        if not (self.fused_shade_grad and scene.n_lights >= 1
+                and not scene.has_textures):
+            return "autograd"
+        if scene.n_tris and not shade.has_analytic(scene):
+            return "fused_tri"
+        if not (scene.n_tris or scene.n_cylinders) and shade.has_analytic(
+                scene):
+            return "fused_ana"
+        return "autograd"
+
     def fused_grad(self, scene) -> bool:
-        """Does :func:`trace_shade` take the fused K5/K6 segment? The
-        reference's ``resolved_fused_shade_grad``: triangles, no analytic
-        primitive, no texture, a light, and ``fused_shade_grad``."""
-        return bool(self.fused_shade_grad and scene.n_tris
-                    and not shade.has_analytic(scene)
-                    and not scene.has_textures and scene.n_lights >= 1)
+        """Does :func:`trace_shade` take a fused segment (K5/K6 or
+        K10/K11, :meth:`replay_route`)?"""
+        return self.replay_route(scene) != "autograd"
+
 
 
 class Bounce(NamedTuple):
@@ -521,9 +544,10 @@ def trace(scene, o: torch.Tensor, d: torch.Tensor,
 
     Differentiable as the reference's: where :func:`replays` holds, the
     topology of the detached rays is recorded without gradients and
-    :func:`trace_shade` replays the shading on it (its fused K5/K6
-    segment or its autograd replay, by :meth:`TraceConfig.fused_grad`),
-    with the rays undetached, so gradients reach the scene and the rays.
+    :func:`trace_shade` replays the shading on it (the fused K5/K6 or
+    K10/K11 segment or the autograd replay, by
+    :meth:`TraceConfig.replay_route`), with the rays undetached, so
+    gradients reach the scene and the rays.
     Else the K3/K4 chain of :func:`segment_step` runs.
     """
     if pack is None:
@@ -635,7 +659,8 @@ REPLAY_FIELDS = ("sphere_center", "sphere_radius", "plane_center",
                  "cyl_height", "texels", "light_pos", "light_color",
                  "ambience", "background")
 
-#: the same for the fused K5/K6 segment, besides ``tri_pack``
+#: the same for the fused segments, besides ``tri_pack`` (K5/K6) or
+#: ``ana16`` and ``mat16`` (K10/K11)
 FUSED_FIELDS = ("light_pos", "light_color", "ambience", "background")
 
 
@@ -679,6 +704,22 @@ def _fused_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
         carry.o.contiguous(), carry.d.contiguous(), carry.weight.contiguous(),
         geom.tri_pack, ti, scene.light_pos, scene.light_color,
         scene.ambience, scene.background, is_t, h, miss, lit, plain)
+    return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add)
+
+
+def _fused_ana_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
+                       plain: bool) -> Bounce:
+    """One segment through the fused K10/K11 segment on sphere and plane
+    hits (ops/shade_grad_ana.py), which reads the record as it is."""
+    mark("segment", carry.o.device)
+    kind, idx, h, miss, is_shadow = rec
+    mark("shade", carry.o.device)
+    add, o2, d2, w2 = sga.ShadeSegmentAna.apply(
+        carry.o.contiguous(), carry.d.contiguous(), carry.weight.contiguous(),
+        geom.ana16, geom.mat16, kind.contiguous(), idx.contiguous(),
+        h.contiguous(), miss.contiguous(), is_shadow.contiguous(),
+        scene.light_pos, scene.light_color, scene.ambience, scene.background,
+        (scene.n_spheres, scene.n_planes), plain)
     return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add)
 
 
@@ -822,6 +863,22 @@ def _fused_cond(scene, geom: shade.ShadeGeom, rec, plain: bool, site: str):
             (geom.tri_pack, *(getattr(scene, f) for f in FUSED_FIELDS)))
 
 
+def _fused_ana_cond(scene, geom: shade.ShadeGeom, rec, plain: bool,
+                    site: str):
+    """(segment, tensors) of a fused K10/K11 segment for
+    :class:`_CondSegment`: ``tensors`` are ``ana16``, ``mat16`` and
+    FUSED_FIELDS. Its graph is kept, so the backward runs K11 on
+    ShadeSegmentAna's saved inputs and K10 never again."""
+    def fwd(o, d, weight, color, ana16, mat16, *fields):
+        sc = dataclasses.replace(scene, **dict(zip(FUSED_FIELDS, fields)))
+        return tuple(_fused_ana_segment(
+            sc, shade.ShadeGeom(geom.tri_pack, mat16, ana16),
+            Bounce(o, d, weight, color), rec, plain))
+    return (_Segment(site, fwd, keep=True),
+            (geom.ana16, geom.mat16,
+             *(getattr(scene, f) for f in FUSED_FIELDS)))
+
+
 def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
                 cfg: TraceConfig = TraceConfig(),
                 geom: Optional[shade.ShadeGeom] = None,
@@ -833,8 +890,10 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     occlusion query. ``trace_shade(scene, o, d, trace_topology(scene, o,
     d))`` equals ``trace(scene, o, d)``. ``geom`` (the packed rows) can be
     shared by the tiles of one pass, so that its gather backward runs
-    once. The fused K5/K6 segment or the autograd replay by
-    :meth:`TraceConfig.fused_grad`.
+    once. The route (the fused K5/K6 segment, the fused K10/K11 segment
+    or the autograd replay) is :meth:`TraceConfig.replay_route`'s; each
+    segment adds one to the host tally ``"replay.<route>"``
+    (``graphs.tally``: a captured graph adds its counts at each replay).
 
     Segment 0 of a topology from :func:`trace_topology` has every ray
     live. Segments 1.. are :class:`_CondSegment` on ``(hit | miss).any()``:
@@ -845,9 +904,9 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     segment 0 runs under ``torch.utils.checkpoint`` and each later
     segment recomputes itself in its backward, so a live segment's replay
     runs twice and a dead one's never under a capture; without it each
-    runs once. The fused segment's residuals are its inputs either way.
+    runs once. A fused segment's residuals are its inputs either way.
     """
-    fused = cfg.validate().fused_grad(scene)
+    route = cfg.validate().replay_route(scene)
     if geom is None:
         geom = shade.pack_shade_geom(scene)
     R = o.shape[0]
@@ -856,8 +915,11 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     for s in range(topo.kind.shape[0]):
         rec = (topo.kind[s], topo.idx[s], topo.hit[s], topo.miss[s],
                topo.shadow[s])
-        if s == 0 and fused:
+        graphs.tally("replay." + route)
+        if s == 0 and route == "fused_tri":
             carry = _fused_segment(scene, geom, carry, rec, cfg.plain)
+        elif s == 0 and route == "fused_ana":
+            carry = _fused_ana_segment(scene, geom, carry, rec, cfg.plain)
         elif s == 0 and checkpoint:
             # the replay draws no random numbers, and a capture cannot
             # stash the CUDA generator's state
@@ -870,10 +932,15 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
                                     cfg.texture_filter)
         else:
             site = f"segment {s} of trace_shade"
-            seg, tensors = (
-                _fused_cond(scene, geom, rec, cfg.plain, site) if fused else
-                _replay_cond(scene, geom, rec, cfg.texture_filter, site,
-                             keep=not checkpoint))
+            if route == "fused_tri":
+                seg, tensors = _fused_cond(scene, geom, rec, cfg.plain, site)
+            elif route == "fused_ana":
+                seg, tensors = _fused_ana_cond(scene, geom, rec, cfg.plain,
+                                               site)
+            else:
+                seg, tensors = _replay_cond(scene, geom, rec,
+                                            cfg.texture_filter, site,
+                                            keep=not checkpoint)
             carry = Bounce(*_CondSegment.apply(
                 seg, (rec[2] | rec[3]).any(),
                 *(t.contiguous() for t in carry), *tensors))

@@ -20,7 +20,13 @@ run-dependent order: cotangents within 3e-5 * max|plain| (the
 reference's bar for its hand-derived VJP), the tri_pack cotangent within
 5e-4 * max|plain| (its bar for gradients summed over many rays). The BVH
 walk (K7) and the dense analytic tests (K8), both built without
-contraction, equal their plain versions: ids and t to the bit.
+contraction, equal their plain versions: ids and t to the bit. The fused
+segment on sphere and plane hits (K10/K11), built without contraction:
+per-ray outputs at the shading bar (the same expressions in the same
+order); K11's table and environment sums, taken in a fixed order of its
+own (no atomics), within 5e-4 and 3e-5 * max|plain| of the plain
+version's index_add_ and sum() (their order differs), and equal to the
+bit from run to run.
 """
 
 import numpy as np
@@ -37,6 +43,7 @@ from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import shade, tracer as tr
 from myraytracer_tpu_torch.ops import shade_grad as sg
+from myraytracer_tpu_torch.ops import shade_grad_ana as sga
 from myraytracer_tpu_torch.ops import traverse as trv
 from myraytracer_tpu_torch.ops.intersect import INF
 from myraytracer_tpu_torch.ops.render import (primary_rays_blocked, render,
@@ -1544,3 +1551,197 @@ def test_segment_counters_graphed_and_eager_equal_plain(cuda, monkeypatch):
         render(data, s.camera, cfg)
     assert graphs.nodes("render") == nodes
     graphs.clear()
+
+
+# --- K10/K11: the fused shade segment on sphere and plane hits -------------
+
+def _ana_segment_inputs(dev, name, s=0, seed=0):
+    """(plain arguments, counts, seeded output cotangents) of segment s of
+    o_04 at 200x200 (the molecule's 800 atoms) or of a random
+    sphere-and-plane scene, with the recorded topology."""
+    from myraytracer_tpu_torch.scenes.golden import scene_04_molecule
+
+    if name == "o04":
+        sc = scene_04_molecule(scale=0.4)
+    else:
+        rng = np.random.default_rng(seed)
+        sc = Scene()
+        sc.set_camera(eye=(0, 1.0, 6.0), center=(0, 0, 0), up=(0, 1, 0),
+                      fovy=50, width=160, height=96)
+        for _ in range(3):
+            sc.add_light(tuple(rng.uniform(-4, 4, 3) + (0, 4, 2)),
+                         tuple(rng.uniform(0.2, 0.9, 3)))
+        sc.max_depth = 2
+        for i in range(300):
+            sc.add_sphere(tuple(rng.uniform(-3, 3, 3) * (1, 0.5, 1)),
+                          float(rng.uniform(0.05, 0.3)), Material(
+                              diffuse=tuple(rng.uniform(0.1, 0.9, 3)),
+                              specular=(0.4,) * 3,
+                              shininess=float(rng.uniform(2, 60)),
+                              mirror=float(rng.choice([0.0, 0.4]))))
+        sc.add_plane((0, -1.5, 0), (0, 1, 0), Material(mirror=0.3))
+    data = sc.build(device=dev)
+    o, d = primary_rays_blocked(sc.camera, dev)
+    with graphs.disable_graphs():
+        topo = tr.trace_topology(data, o, d)
+    geom = shade.pack_shade_geom(data)
+    R = o.shape[0]
+    counts = (data.n_spheres, data.n_planes)
+    carry = (o, d, torch.ones(R, device=dev))
+    for k in range(s + 1):
+        args = (*carry, geom.ana16, geom.mat16, *(
+            getattr(topo, f)[k].contiguous()
+            for f in ("kind", "idx", "hit", "miss", "shadow")),
+            data.light_pos, data.light_color, data.ambience, data.background)
+        carry = sga.segment_ana_plain(*args, counts)[1:]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cots = [torch.randn(sh, generator=gen, device=dev)
+            for sh in ((R, 3), (R, 3), (R, 3), (R,))]
+    return args, counts, cots
+
+
+#: K11's outputs and the bar of each against the plain version
+ANA_BWD = dict(o=3e-5, d=3e-5, w=3e-5, ana16=5e-4, mat16=5e-4,
+               light_pos=3e-5, light_color=3e-5, ambience=3e-5,
+               background=3e-5)
+
+
+@pytest.mark.parametrize("name,s", [("o04", 0), ("o04", 1), ("random", 0),
+                                    ("random", 1)])
+def test_ana_segment_kernels_match_plain(cuda, name, s):
+    """K10 and K11 against their plain versions (each launched once), and
+    K11 with only some cotangents asked for: those equal to the bit to a
+    full run's, None for the rest."""
+    args, counts, cots = _ana_segment_inputs(cuda, name, s, seed=3 + s)
+    before = dict(LAUNCHES)
+    fwd = sga.segment_ana_fwd(*args, counts)
+    assert LAUNCHES["seg_ana_fwd"] == before["seg_ana_fwd"] + 1
+    for nm, a, b in zip(("add", "o2", "d2", "w2"), fwd,
+                        sga.segment_ana_plain(*args, counts)):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=nm)
+    bwd = sga.segment_ana_bwd(*args, counts, *cots)
+    assert LAUNCHES["seg_ana_bwd"] == before["seg_ana_bwd"] + 1
+    want = sga.segment_ana_bwd_plain(*args, counts, *cots)
+    for (nm, rel), a, b in zip(ANA_BWD.items(), bwd, want):
+        _close_scaled(a, b, nm, rel)
+    assert bwd[4][:, :sga.MAT_COLS].abs().max() > 0
+    for need in ((False, False, True, False, True, True, True, True, True),
+                 (True, True, False, True, False, False, False, False,
+                  False)):
+        part = sga.segment_ana_bwd(*args, counts, *cots, need=need)
+        for a, b, n in zip(part, bwd, need):
+            assert (a is None) if not n else torch.equal(a, b)
+    # cotangents left out are zero
+    none = sga.segment_ana_bwd(*args, counts, None, None, None, None)
+    assert all(not g.any() for g in none)
+
+
+def test_ana_segment_bwd_runs_equal_to_the_bit(cuda):
+    """K11 sums every table and environment cotangent in a fixed order:
+    five runs on the same inputs give the same bits."""
+    args, counts, cots = _ana_segment_inputs(cuda, "o04", 0, seed=7)
+    first = sga.segment_ana_bwd(*args, counts, *cots)
+    for _ in range(4):
+        again = sga.segment_ana_bwd(*args, counts, *cots)
+        for nm, a, b in zip(sga.BWD_OUTPUTS, again, first):
+            assert torch.equal(a, b), nm
+
+
+def test_ana_segment_function_on_cuda(cuda):
+    """ShadeSegmentAna launches K10 and K11 and gives the plain versions'
+    gradients (ANA_BWD's bars)."""
+    args, counts, cots = _ana_segment_inputs(cuda, "random", 1, seed=5)
+    pos = (0, 1, 2, 3, 4, 10, 11, 12, 13)
+    grads = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_(True) if i in pos else a
+                  for i, a in enumerate(args)]
+        out = sga.ShadeSegmentAna.apply(*leaves, counts, plain)
+        loss = sum((x * c).sum() for x, c in zip(out, cots))
+        grads.append(torch.autograd.grad(loss, [leaves[i] for i in pos]))
+    for (nm, rel), a, b in zip(ANA_BWD.items(), *grads):
+        _close_scaled(a, b, nm, rel)
+
+
+@pytest.mark.parametrize("entry", ["loss_grad", "fit"])
+def test_ana_segment_graphed_under_if_nodes_equals_eager(cuda, entry):
+    """o_04 (three segments, the third dead) through the K10/K11 route,
+    graphed: the capture holds its IF nodes (the topology's, the replay's
+    forward and backward, for segments 1 and 2), a replay skips segment
+    2's three bodies and launches K10 and K11 twice (segments 0 and 1) and
+    K5/K6 never, and the loss and gradients (fit: the losses and the
+    fitted leaves) equal the eager run's to the bit."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+    from myraytracer_tpu_torch.scenes.golden import scene_04_molecule
+
+    graphs.clear()
+    sc = scene_04_molecule(scale=0.3)
+    data, cam = sc.build(device=cuda), sc.camera
+    cfg = tr.TraceConfig()
+    assert cfg.replay_route(data) == "fused_ana" and data.n_segments == 3
+    tgt = 0.9 * render(data, cam, cfg) + 0.02
+    nodes = graphs.COUNTS["if_nodes"]
+    if entry == "loss_grad":
+        def fn():
+            return render_loss_grad_image(data, cam, tgt, cfg)
+    else:
+        xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+
+        def fn():
+            inv = InverseRenderer(data, ("mat_diffuse", "light_color",
+                                         "sphere_center"),
+                                  optimizer=adam(0.02), camera=cam, cfg=cfg)
+            losses = [inv.fit_pixels(xs, ys, tgt.reshape(-1, 3),
+                                     steps=1).losses[0] for _ in range(4)]
+            return losses, {k: v.detach().clone()
+                            for k, v in inv.params.items()}
+    want, l_eager = _eager(fn)
+    if entry == "loss_grad":
+        fn()                            # the warm-up
+        fn()                            # the capture and its replay
+        torch.cuda.synchronize()
+        graphs.count_bodies()
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        before = dict(graphs.COUNTS)
+        got = fn()
+    else:
+        got = fn()                      # warm-ups, a capture, a replay
+        before = None
+    ran, skipped = graphs.count_bodies()
+    assert graphs.COUNTS["if_nodes"] - nodes == 6
+    assert (ran, skipped) == (3, 3)
+    if entry == "loss_grad":
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        assert graphs.COUNTS["replays"] - before["replays"] == 1
+        assert launched["seg_ana_fwd"] == 2 and launched["seg_ana_bwd"] == 2
+        assert "seg_fwd" not in launched and "seg_bwd" not in launched
+        assert l_eager["seg_ana_fwd"] == 3 and l_eager["seg_ana_bwd"] == 3
+        assert torch.equal(got[0], want[0])
+    else:
+        assert got[0] == want[0]
+        # the fit step's graph counts its three segments by route
+        assert graphs.tallies("fit_step") == {"replay.fused_ana": 3}
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k
+
+
+def test_ana_segment_wrappers_reject_bad_inputs(cuda):
+    args, counts, cots = _ana_segment_inputs(cuda, "o04", 0, seed=9)
+    bad = list(args)
+    bad[5] = args[5].long()
+    with pytest.raises(ValueError, match="kind"):
+        sga.segment_ana_fwd(*bad, counts)
+    bad = list(args)
+    bad[9] = args[9].float()
+    with pytest.raises(ValueError, match="shadow"):
+        sga.segment_ana_bwd(*bad, counts, *cots)
+    bad = list(args)
+    bad[4] = args[4][:, :12].contiguous()
+    with pytest.raises(ValueError, match="mat16"):
+        sga.segment_ana_fwd(*bad, counts)
+    with pytest.raises(ValueError, match="g_w2"):
+        sga.segment_ana_bwd(*args, counts, *cots[:3], cots[3].cpu())
+    with pytest.raises(ValueError, match="rows"):
+        sga.segment_ana_fwd(*args, (counts[0] + 1, counts[1]))
