@@ -1,7 +1,7 @@
 """Wavefront Whitted integrator over the fused kernel pipeline (torch).
 
 Counterpart of ``myraytracer_tpu/ops/tracer.py``. Every Whitted segment
-runs once over the whole flat ray batch:
+runs once over the whole flat ray batch (:func:`segment_step`):
 
   closest hit  the dense analytic tests (spheres, then planes, then
                cylinders; K8, ops/cuda_analytic.py), then triangles by
@@ -22,35 +22,34 @@ is "cluster" (its ``resolved_fused_shade``) only because that pipeline
 was built around the cluster megakernel; its own tests show the three
 methods' images equal within 1e-5 and the fused and XLA shading equal.
 
-The training step splits that chain in two: :func:`trace_topology` runs
-it without gradients and records per segment which primitive each ray
-hit and the shadow mask; :func:`trace_shade` replays the differentiable
-shading on that fixed topology, with no traversal. :func:`trace` runs
-the chain where the kernel shading equals the reference's XLA shading,
-and the two passes (the replay route) where they differ: when autograd
+One loop (:func:`_segments`) runs the forward segments of :func:`trace`
+and :func:`trace_topology`; the topology asks it for each segment's
+record (which primitive each ray hit, live hit, live miss, the shadow
+mask per light), :func:`trace` does not and forms none. The training
+step splits the chain in two: :func:`trace_topology` records without
+gradients, :func:`trace_shade` replays the differentiable shading on
+that fixed topology, with no traversal. :func:`trace` takes both passes
+where K3/K4 differ from the reference's XLA shading: when autograd
 records the call, and for the bilinear texel fetch on a textured scene
-(:func:`replays`). :func:`trace_shade` takes its route by the scene's
-primitive kinds, textures and lights (:meth:`TraceConfig.replay_route`),
-with ``fused_shade_grad`` set and at least one light and no texture: the
-fused K5/K6 segment (ops/shade_grad.py) on triangles alone, exactly
-where the reference's ``resolved_fused_shade_grad`` would; the fused
-K10/K11 segment (ops/shade_grad_ana.py) on spheres and planes alone.
-Every other scene (mixed triangles and analytic primitives, cylinders,
-textures, no light) takes the autograd replay of ``shade.resolve_hit`` +
-:func:`lighting_from_mask`. This is a choice by scene content, not a
-fallback: each fused segment covers its kinds whole, and computes what
-the autograd replay computes.
+(:func:`replays`). :func:`trace_shade` takes its route from one table,
+:data:`ROUTES`, under the name :meth:`TraceConfig.replay_route` gives by
+the scene's primitive kinds, textures and lights: the fused K5/K6
+segment (ops/shade_grad.py) on triangles alone, exactly where the
+reference's ``resolved_fused_shade_grad`` would; the fused K10/K11
+segment (ops/shade_grad_ana.py) on spheres and planes alone; else the
+autograd replay of ``shade.resolve_hit`` + :func:`lighting_from_mask`.
+A choice by scene content, not a fallback: each fused segment covers its
+kinds whole and computes what the autograd replay computes.
 
 A segment in which no ray is alive any more yields its carry unchanged,
 as the reference's ``lax.cond`` does. The condition is a 0-d tensor on
 the device, so no segment reads a value back to the host and the entry
-points can be captured as CUDA graphs (ops/graphs.py). While a graph is
-being captured, segments 1.. of :func:`trace` and :func:`trace_topology`
-are branches (:func:`_branch`): each runs under a CUDA-graph IF node and
-writes the carry, and in the topology its record, in place, so a replay
-skips a dead segment's work as ``lax.cond`` does. Segments 1.. of
-:func:`trace_shade` are :class:`_CondSegment`, an autograd Function whose
-forward and backward each run under an IF node on the segment's
+points can be captured as CUDA graphs (ops/graphs.py). Under a capture
+the loop's segments 1.. are branches (:func:`_branch`): each runs under
+a CUDA-graph IF node and writes the carry, and any record, in place, so
+a replay skips a dead segment's work as ``lax.cond`` does. Segments 1..
+of :func:`trace_shade` are :class:`_CondSegment`, an autograd Function
+whose forward and backward each run under an IF node on the segment's
 ``(hit | miss).any()``: the VJP of ``lax.cond`` is a cond too, so a dead
 segment costs nothing in a training step either. Run eagerly (the CPU,
 a key's warm-up, ``disable_graphs()``, the sharded paths), a segment
@@ -74,7 +73,7 @@ Device phase marks (utils/profiling.mark) split a segment's device time:
 ``segment`` at its start (inside an IF node's body for segments 1..,
 so a skipped segment leaves no mark), ``analytic`` before the dense
 analytic tests, ``tri`` before each triangle query, ``shade`` before K3,
-K4, K5 or the autograd replay.
+K4, K5, K10 or the autograd replay.
 """
 
 from __future__ import annotations
@@ -162,15 +161,15 @@ class TraceConfig(NamedTuple):
         return "bvh" if self.tri_method == "auto" else self.tri_method
 
     def replay_route(self, scene) -> str:
-        """The route of :func:`trace_shade` on ``scene``, by its
-        primitive kinds, textures and lights; each segment it runs adds
-        one to the host tally ``"replay.<route>"`` (``graphs.tally``).
-        With ``fused_shade_grad``, a light and no texture:
-        ``"fused_tri"`` (K5/K6, the reference's
-        ``resolved_fused_shade_grad``) for triangles and no analytic
-        primitive, ``"fused_ana"`` (K10/K11) for spheres or planes and no
-        triangle or cylinder. ``"autograd"`` (the autograd replay)
-        otherwise."""
+        """The route of :func:`trace_shade` on ``scene`` (a key of
+        :data:`ROUTES`), by its primitive kinds, textures and lights;
+        each segment it runs adds one to the host tally
+        ``"replay.<route>"`` (``graphs.tally``). With
+        ``fused_shade_grad``, a light and no texture: ``"fused_tri"``
+        (K5/K6, the reference's ``resolved_fused_shade_grad``) for
+        triangles and no analytic primitive, ``"fused_ana"`` (K10/K11)
+        for spheres or planes and no triangle or cylinder.
+        ``"autograd"`` (the autograd replay) otherwise."""
         if not (self.fused_shade_grad and scene.n_lights >= 1
                 and not scene.has_textures):
             return "autograd"
@@ -180,12 +179,6 @@ class TraceConfig(NamedTuple):
                 scene):
             return "fused_ana"
         return "autograd"
-
-    def fused_grad(self, scene) -> bool:
-        """Does :func:`trace_shade` take a fused segment (K5/K6 or
-        K10/K11, :meth:`replay_route`)?"""
-        return self.replay_route(scene) != "autograd"
-
 
 
 class Bounce(NamedTuple):
@@ -434,9 +427,10 @@ COUNTERS = "tracer.segments"
 
 def segment_step(scene, pack: TracePack, carry: Bounce,
                  cfg: TraceConfig = TraceConfig(), seg: int = 0,
-                 cond: Optional[torch.Tensor] = None):
+                 cond: Optional[torch.Tensor] = None, record: bool = True):
     """One Whitted segment -> (next bounce with its color added, the
-    segment's topology record (kind, idx, hit, miss, shadow)).
+    segment's topology record (kind, idx, hit, miss, shadow), or ``()``
+    without ``record``, which forms none).
 
     ``seg`` is the segment's index and ``cond`` its condition (None for
     segment 0, else the 0-d bool ``(weight > 0).any()`` of the carry):
@@ -451,7 +445,7 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
     kind, pidx, aidx, t = closest_hit(scene, pack, o, d, live, cfg)
     valid = kind != shade.KIND_MISS
     zero_i = torch.zeros_like(pidx)
-    idx = torch.where(valid, pidx, zero_i)
+    idx = torch.where(valid, pidx, zero_i) if record else None
     tri_idx = torch.where(kind == shade.KIND_TRI, pidx, zero_i).contiguous()
     live_i = live.to(torch.int32)
 
@@ -473,8 +467,8 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
         o, d, carry.weight.contiguous(), valid.to(torch.int32), live_i, mid,
         texid, point, normal, shadow.contiguous(), geom.mat16, scene.texels,
         scene.light_pos, scene.light_color, pack.env)
-    record = (kind, idx, valid, live & ~valid, shadow > 0)
-    return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add), record
+    rec = (kind, idx, valid, live & ~valid, shadow > 0) if record else ()
+    return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add), rec
 
 
 def _select(pred: torch.Tensor, new, old):
@@ -555,22 +549,7 @@ def trace(scene, o: torch.Tensor, d: torch.Tensor,
     if replays(scene, o, d, cfg):
         topo = trace_topology(scene, o.detach(), d.detach(), cfg, pack)
         return trace_shade(scene, o, d, topo, cfg, pack.geom)
-    R = o.shape[0]
-    carry = Bounce(o=o, d=d, weight=torch.ones(R, device=o.device),
-                   color=torch.zeros((R, 3), device=o.device))
-    branches = _branches(scene, o.device)
-    for s in range(scene.n_segments):
-        alive = (carry.weight > 0.0).any() if s else None
-        if s and branches:
-            _branch(alive,
-                    lambda: segment_step(scene, pack, carry, cfg, s, alive)[0],
-                    carry, f"segment {s} of trace")
-            continue
-        nxt, _ = segment_step(scene, pack, carry, cfg, s, alive)
-        if s:
-            nxt = _select(alive, nxt, carry)
-        carry = _owned(nxt) if branches else nxt
-    return carry.color
+    return _segments(scene, o, d, cfg, pack, "trace")[0].color
 
 
 @torch.no_grad()
@@ -584,29 +563,51 @@ def trace_topology(scene, o: torch.Tensor, d: torch.Tensor,
     reference's ``dead`` record."""
     if pack is None:
         pack = pack_trace(scene, cfg)
-    R, L = o.shape[0], scene.n_lights
-    dev = o.device
+    records = _segments(scene, o, d, cfg, pack, "trace_topology",
+                        record=True)[1]
+    return TraceTopo(*(torch.stack(x) for x in zip(*records)))
+
+
+def _segments(scene, o, d, cfg: TraceConfig, pack: TracePack, entry: str,
+              record: bool = False) -> tuple:
+    """The one loop over the forward segments of :func:`trace` and
+    :func:`trace_topology` (``entry``, in the IF nodes' names) -> (the
+    last carry, each segment's record, ``()`` each without ``record``).
+
+    Segment 0 runs as it is. Each later segment runs where its condition
+    ``(weight > 0).any()`` holds: under a capture as a :func:`_branch`
+    into the carry and a record pre-filled :func:`_dead`, eagerly by a
+    :func:`_select` against them."""
+    R, dev = o.shape[0], o.device
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=dev),
                    color=torch.zeros((R, 3), device=dev))
-    branches = _branches(scene, o.device)
+    branches = _branches(scene, dev)
+
+    def dead():
+        # an eager segment makes it after its step, so that it adds
+        # nothing to the step's peak memory; a branch's must exist before
+        # the IF node
+        return _dead(R, scene.n_lights, dev) if record else ()
     records = []
     for s in range(scene.n_segments):
         alive = (carry.weight > 0.0).any() if s else None
+
+        def step():
+            return segment_step(scene, pack, carry, cfg, s, alive, record)
         if s and branches:
-            rec = _dead(R, L, dev)
-            _branch(alive,
-                    lambda: _flat(segment_step(scene, pack, carry, cfg, s,
-                                               alive)),
-                    carry + rec, f"segment {s} of trace_topology")
+            rec = dead()
+            # the body's (next carry, record) as one tuple, as the buffers
+            _branch(alive, lambda: sum(step(), ()), carry + rec,
+                    f"segment {s} of {entry}")
             records.append(rec)
             continue
-        nxt, rec = segment_step(scene, pack, carry, cfg, s, alive)
+        nxt, rec = step()
         if s:
             nxt = _select(alive, nxt, carry)
-            rec = _select(alive, rec, _dead(R, L, dev))
+            rec = _select(alive, rec, dead())
         carry = _owned(nxt) if branches else nxt
         records.append(rec)
-    return TraceTopo(*(torch.stack(x) for x in zip(*records)))
+    return carry, records
 
 
 def _dead(R: int, L: int, dev) -> tuple:
@@ -617,12 +618,6 @@ def _dead(R: int, L: int, dev) -> tuple:
             torch.zeros(R, dtype=torch.bool, device=dev),
             torch.zeros(R, dtype=torch.bool, device=dev),
             torch.zeros((L, R), dtype=torch.bool, device=dev))
-
-
-def _flat(step) -> tuple:
-    """(next bounce, record) of :func:`segment_step` as one tuple."""
-    nxt, rec = step
-    return nxt + rec
 
 
 def lighting_from_mask(scene, hit: shade.Hit, view: torch.Tensor,
@@ -651,27 +646,15 @@ def lighting_from_mask(scene, hit: shade.Hit, view: torch.Tensor,
     return color + contrib.sum(dim=0)
 
 
-#: the scene tensors that the autograd replay reads besides ShadeGeom's
-#: rows (shade.resolve_hit, lighting_from_mask, _replay_segment): inputs
-#: of its conditional segments, so that their gradients pass through
-REPLAY_FIELDS = ("sphere_center", "sphere_radius", "plane_center",
-                 "plane_normal", "cyl_center", "cyl_axis", "cyl_radius",
-                 "cyl_height", "texels", "light_pos", "light_color",
-                 "ambience", "background")
-
-#: the same for the fused segments, besides ``tri_pack`` (K5/K6) or
-#: ``ana16`` and ``mat16`` (K10/K11)
-FUSED_FIELDS = ("light_pos", "light_color", "ambience", "background")
-
-
 def _replay_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
-                    texture_filter: str) -> Bounce:
-    """One segment of the autograd replay (the reference's default)."""
+                    cfg: TraceConfig) -> Bounce:
+    """One segment of the autograd replay (the reference's default), with
+    ``cfg.texture_filter``'s texel fetch."""
     mark("segment", carry.o.device)
     kind, idx, h, miss, is_shadow = rec
     mark("shade", carry.o.device)
     hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx, geom,
-                            texture_filter)
+                            cfg.texture_filter)
     local = lighting_from_mask(scene, hit, -carry.d, is_shadow)
     w = carry.weight[:, None]
     add = (torch.where(h[:, None], w * (1.0 - hit.mirror[:, None]) * local,
@@ -695,7 +678,7 @@ def _fused_rows(scene, rec, dtype) -> tuple:
 
 
 def _fused_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
-                   plain: bool) -> Bounce:
+                   cfg: TraceConfig) -> Bounce:
     """One segment through the fused K5/K6 segment (ops/shade_grad.py)."""
     mark("segment", carry.o.device)
     ti, is_t, h, miss, lit = _fused_rows(scene, rec, carry.o.dtype)
@@ -703,12 +686,12 @@ def _fused_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
     add, o2, d2, w2 = sg.ShadeSegment.apply(
         carry.o.contiguous(), carry.d.contiguous(), carry.weight.contiguous(),
         geom.tri_pack, ti, scene.light_pos, scene.light_color,
-        scene.ambience, scene.background, is_t, h, miss, lit, plain)
+        scene.ambience, scene.background, is_t, h, miss, lit, cfg.plain)
     return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add)
 
 
 def _fused_ana_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
-                       plain: bool) -> Bounce:
+                       cfg: TraceConfig) -> Bounce:
     """One segment through the fused K10/K11 segment on sphere and plane
     hits (ops/shade_grad_ana.py), which reads the record as it is."""
     mark("segment", carry.o.device)
@@ -719,8 +702,42 @@ def _fused_ana_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
         geom.ana16, geom.mat16, kind.contiguous(), idx.contiguous(),
         h.contiguous(), miss.contiguous(), is_shadow.contiguous(),
         scene.light_pos, scene.light_color, scene.ambience, scene.background,
-        (scene.n_spheres, scene.n_planes), plain)
+        (scene.n_spheres, scene.n_planes), cfg.plain)
     return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add)
+
+
+class _Route(NamedTuple):
+    """One route of :func:`trace_shade` (a value of :data:`ROUTES`)."""
+
+    #: one segment: (scene, geom, carry, record, cfg) -> the next Bounce
+    step: Callable
+    #: the ShadeGeom rows and the scene fields it reads with a gradient:
+    #: the inputs of its conditional segments, so that their gradients
+    #: pass through
+    rows: tuple
+    fields: tuple
+    #: ``trace_shade(checkpoint=True)`` keeps none of its residuals:
+    #: segment 0 runs under ``torch.utils.checkpoint`` and each later
+    #: segment recomputes itself in its backward. A fused segment's
+    #: residuals are its inputs, so its graph is always kept and its
+    #: backward kernel (K6, K11) runs once, its forward never again.
+    recompute: bool = False
+
+
+#: the lights and the environment, which every route reads
+_LIGHTS = ("light_pos", "light_color", "ambience", "background")
+
+#: the routes of :func:`trace_shade` by :meth:`TraceConfig.replay_route`'s
+#: names (each also a host tally ``"replay.<name>"``)
+ROUTES = {
+    "fused_tri": _Route(_fused_segment, ("tri_pack",), _LIGHTS),
+    "fused_ana": _Route(_fused_ana_segment, ("ana16", "mat16"), _LIGHTS),
+    "autograd": _Route(
+        _replay_segment, ("tri_pack", "mat16"),
+        ("sphere_center", "sphere_radius", "plane_center", "plane_normal",
+         "cyl_center", "cyl_axis", "cyl_radius", "cyl_height", "texels",
+         *_LIGHTS), recompute=True),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -834,49 +851,20 @@ class _CondSegment(torch.autograd.Function):
         return (None, None, *out)
 
 
-def _replay_cond(scene, geom: shade.ShadeGeom, rec, texture_filter: str,
-                 site: str, keep: bool):
-    """(segment, tensors) of an autograd replay segment for
-    :class:`_CondSegment`: ``tensors`` are ``tri_pack``, ``mat16`` and
-    REPLAY_FIELDS, which its ``fwd`` puts back into the scene."""
-    def fwd(o, d, weight, color, tri_pack, mat16, *fields):
-        sc = dataclasses.replace(scene, **dict(zip(REPLAY_FIELDS, fields)))
-        return tuple(_replay_segment(
-            sc, shade.ShadeGeom(tri_pack, mat16, geom.ana16),
-            Bounce(o, d, weight, color), rec, texture_filter))
+def _cond_segment(route: _Route, scene, geom: shade.ShadeGeom, rec,
+                  cfg: TraceConfig, site: str, keep: bool):
+    """(segment, tensors) of ``route``'s segment on the record ``rec`` for
+    :class:`_CondSegment`: ``tensors`` are the route's rows of ``geom``
+    and its fields of ``scene``, which its ``fwd`` puts back."""
+    n = len(route.rows)
+
+    def fwd(o, d, weight, color, *tensors):
+        g = geom._replace(**dict(zip(route.rows, tensors[:n])))
+        sc = dataclasses.replace(scene, **dict(zip(route.fields, tensors[n:])))
+        return tuple(route.step(sc, g, Bounce(o, d, weight, color), rec, cfg))
     return (_Segment(site, fwd, keep=keep),
-            (geom.tri_pack, geom.mat16,
-             *(getattr(scene, f) for f in REPLAY_FIELDS)))
-
-
-def _fused_cond(scene, geom: shade.ShadeGeom, rec, plain: bool, site: str):
-    """(segment, tensors) of a fused K5/K6 segment for :class:`_CondSegment`:
-    ``tensors`` are ``tri_pack`` and FUSED_FIELDS. Its graph is kept, so
-    the backward runs K6 on ShadeSegment's saved inputs and K5 never
-    again."""
-    def fwd(o, d, weight, color, tri_pack, *fields):
-        sc = dataclasses.replace(scene, **dict(zip(FUSED_FIELDS, fields)))
-        return tuple(_fused_segment(
-            sc, shade.ShadeGeom(tri_pack, geom.mat16, geom.ana16),
-            Bounce(o, d, weight, color), rec, plain))
-    return (_Segment(site, fwd, keep=True),
-            (geom.tri_pack, *(getattr(scene, f) for f in FUSED_FIELDS)))
-
-
-def _fused_ana_cond(scene, geom: shade.ShadeGeom, rec, plain: bool,
-                    site: str):
-    """(segment, tensors) of a fused K10/K11 segment for
-    :class:`_CondSegment`: ``tensors`` are ``ana16``, ``mat16`` and
-    FUSED_FIELDS. Its graph is kept, so the backward runs K11 on
-    ShadeSegmentAna's saved inputs and K10 never again."""
-    def fwd(o, d, weight, color, ana16, mat16, *fields):
-        sc = dataclasses.replace(scene, **dict(zip(FUSED_FIELDS, fields)))
-        return tuple(_fused_ana_segment(
-            sc, shade.ShadeGeom(geom.tri_pack, mat16, ana16),
-            Bounce(o, d, weight, color), rec, plain))
-    return (_Segment(site, fwd, keep=True),
-            (geom.ana16, geom.mat16,
-             *(getattr(scene, f) for f in FUSED_FIELDS)))
+            (*(getattr(geom, r) for r in route.rows),
+             *(getattr(scene, f) for f in route.fields)))
 
 
 def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
@@ -891,8 +879,9 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     d))`` equals ``trace(scene, o, d)``. ``geom`` (the packed rows) can be
     shared by the tiles of one pass, so that its gather backward runs
     once. The route (the fused K5/K6 segment, the fused K10/K11 segment
-    or the autograd replay) is :meth:`TraceConfig.replay_route`'s; each
-    segment adds one to the host tally ``"replay.<route>"``
+    or the autograd replay) is the entry of :data:`ROUTES` that
+    :meth:`TraceConfig.replay_route` names; each segment adds one to the
+    host tally ``"replay.<route>"``
     (``graphs.tally``: a captured graph adds its counts at each replay).
 
     Segment 0 of a topology from :func:`trace_topology` has every ray
@@ -906,7 +895,9 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     runs twice and a dead one's never under a capture; without it each
     runs once. A fused segment's residuals are its inputs either way.
     """
-    route = cfg.validate().replay_route(scene)
+    name = cfg.validate().replay_route(scene)
+    route = ROUTES[name]
+    recompute = checkpoint and route.recompute
     if geom is None:
         geom = shade.pack_shade_geom(scene)
     R = o.shape[0]
@@ -915,32 +906,20 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     for s in range(topo.kind.shape[0]):
         rec = (topo.kind[s], topo.idx[s], topo.hit[s], topo.miss[s],
                topo.shadow[s])
-        graphs.tally("replay." + route)
-        if s == 0 and route == "fused_tri":
-            carry = _fused_segment(scene, geom, carry, rec, cfg.plain)
-        elif s == 0 and route == "fused_ana":
-            carry = _fused_ana_segment(scene, geom, carry, rec, cfg.plain)
-        elif s == 0 and checkpoint:
+        graphs.tally("replay." + name)
+        if s == 0 and recompute:
             # the replay draws no random numbers, and a capture cannot
             # stash the CUDA generator's state
             carry = Bounce(*torch.utils.checkpoint.checkpoint(
-                lambda *c, rec=rec: tuple(_replay_segment(
-                    scene, geom, Bounce(*c), rec, cfg.texture_filter)),
+                lambda *c, rec=rec: tuple(route.step(
+                    scene, geom, Bounce(*c), rec, cfg)),
                 *carry, use_reentrant=False, preserve_rng_state=False))
         elif s == 0:
-            carry = _replay_segment(scene, geom, carry, rec,
-                                    cfg.texture_filter)
+            carry = route.step(scene, geom, carry, rec, cfg)
         else:
-            site = f"segment {s} of trace_shade"
-            if route == "fused_tri":
-                seg, tensors = _fused_cond(scene, geom, rec, cfg.plain, site)
-            elif route == "fused_ana":
-                seg, tensors = _fused_ana_cond(scene, geom, rec, cfg.plain,
-                                               site)
-            else:
-                seg, tensors = _replay_cond(scene, geom, rec,
-                                            cfg.texture_filter, site,
-                                            keep=not checkpoint)
+            seg, tensors = _cond_segment(
+                route, scene, geom, rec, cfg, f"segment {s} of trace_shade",
+                keep=not recompute)
             carry = Bounce(*_CondSegment.apply(
                 seg, (rec[2] | rec[3]).any(),
                 *(t.contiguous() for t in carry), *tensors))

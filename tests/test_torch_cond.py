@@ -24,6 +24,7 @@ CUDA device) patched to true, so that:
       the segment, and never runs the body unconditionally.
 """
 
+import collections
 import contextlib
 import dataclasses
 from unittest import mock
@@ -32,7 +33,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import _disable_current_modes
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 
 from myraytracer_tpu.models.material import Material as RMaterial
 from myraytracer_tpu.models.mesh import FLAT as RFLAT
@@ -282,6 +284,46 @@ def test_skipped_body_keeps_the_carry_and_records_dead(dead, method):
         assert not getattr(topo, f)[1:].any(), f
 
 
+@pytest.mark.parametrize("method", METHODS)
+def test_segment_step_without_the_record_gives_the_same_bounce(dead,
+                                                               method):
+    """trace's segments form no record: segment_step(record=False) gives
+    the recording step's Bounce to the bit on each segment of the dead
+    scene, returns () for the record, and dispatches exactly the
+    record's four ops fewer (its idx ``where``, ``~``, ``&``, ``> 0``)."""
+    port, o, d = dead["port"], dead["o"], dead["d"]
+    cfg = tr.TraceConfig(tri_method=method)
+    pack = tr.pack_trace(port, cfg)
+    R = o.shape[0]
+    carry = tr.Bounce(o, d, torch.ones(R), torch.zeros((R, 3)))
+    for s in range(port.n_segments):
+        with OpNames() as full:
+            nxt, rec = tr.segment_step(port, pack, carry, cfg, s)
+        with OpNames() as bare:
+            got, none = tr.segment_step(port, pack, carry, cfg, s,
+                                        record=False)
+        assert len(rec) == 5 and none == ()
+        for a, b in zip(got, nxt):
+            assert a.dtype == b.dtype and torch.equal(a, b), s
+        assert full.names - bare.names == collections.Counter(
+            ["where.self", "bitwise_not.default", "bitwise_and.Tensor",
+             "gt.Scalar"])
+        assert not bare.names - full.names
+        carry = nxt
+
+
+class OpNames(TorchDispatchMode):
+    """Counts the ATen ops dispatched under it, by name."""
+
+    def __enter__(self):
+        self.names = collections.Counter()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names[func.__name__] += 1
+        return func(*args, **(kwargs or {}))
+
+
 # --- (c) the buffers --------------------------------------------------------
 
 def test_branch_buffers_never_alias_the_rays(dead, monkeypatch):
@@ -394,7 +436,7 @@ SHADE_CASES = [("dead", True), ("dead", False), ("tiles", False),
 def _shade_case(request, name, fused):
     case = request.getfixturevalue(name)
     cfg = tr.TraceConfig(fused_shade_grad=fused)
-    assert cfg.fused_grad(case["port"]) == fused
+    assert (cfg.replay_route(case["port"]) != "autograd") == fused
     return case, cfg
 
 
@@ -467,13 +509,13 @@ def _segment_inputs(case, fused: bool, s: int = 1):
     topo = tr.trace_topology(port, o, d)
     rec = tuple(getattr(topo, f)[s] for f in TOPO_FIELDS)
     geom = shade.pack_shade_geom(port)
-    site = f"segment {s} of trace_shade"
-    seg, tensors = (tr._fused_cond(port, geom, rec, False, site) if fused
-                    else tr._replay_cond(port, geom, rec, "nearest", site,
-                                         keep=False))
+    cfg = tr.TraceConfig()
+    seg, tensors = tr._cond_segment(
+        tr.ROUTES["fused_tri" if fused else "autograd"], port, geom, rec,
+        cfg, f"segment {s} of trace_shade", keep=fused)
     first = tr._replay_segment(port, geom, tr.Bounce(
         o, d, torch.ones(o.shape[0]), torch.zeros_like(o)), tuple(
-            getattr(topo, f)[0] for f in TOPO_FIELDS), "nearest")
+            getattr(topo, f)[0] for f in TOPO_FIELDS), cfg)
     inputs = [t.detach().clone().requires_grad_(True)
               for t in (*first, *tensors)]
     return seg, (rec[2] | rec[3]).any(), inputs
@@ -512,31 +554,47 @@ def test_skipped_segment_passes_the_dead_cotangents(dead, fused, keep):
             assert g.shape == x.shape and not g.any()
 
 
-def test_segment_inputs_hold_every_tensor_the_replay_reads():
-    """A tensor the replay only closed over would lose its gradient: with
-    every float scene tensor but REPLAY_FIELDS cut from the graph, the
-    autograd replay of a scene with every kind and textures still reaches
-    its inputs, and no other scene tensor."""
-    ref = kinds.mixed_scene(mirror=0.4, w=16, h=12)
+#: a scene of each route's kinds (segment 1 live in each)
+ROUTE_SCENES = {
+    "fused_tri": lambda: live_scene("fused", "port"),
+    "fused_ana": lambda: kinds.mixed_scene(mirror=0.4, cyl=False, tris=False,
+                                           w=16, h=12),
+    "autograd": lambda: kinds.mixed_scene(mirror=0.4, w=16, h=12)}
+
+
+@pytest.mark.parametrize("route", list(tr.ROUTES))
+def test_segment_inputs_hold_every_tensor_the_replay_reads(route):
+    """A tensor a route's step only closed over would lose its gradient:
+    with every float scene tensor but the route's fields, and every
+    ShadeGeom row but its rows, cut from the graph, the route's step on
+    segment 1 of a scene of its kinds (the autograd replay's with every
+    kind and textures, bilinear) reaches no input, and its conditional
+    segment's tensors are exactly its rows and fields."""
+    ref = ROUTE_SCENES[route]()
     port = ref.build(device="cpu")
+    cfg = tr.TraceConfig(texture_filter="bilinear")
+    assert cfg.replay_route(port) == route
     o, d = prender.primary_rays_blocked(ref.camera, "cpu")
     topo = tr.trace_topology(port, o, d)
     rec = tuple(getattr(topo, f)[1] for f in TOPO_FIELDS)
+    assert bool((rec[2] | rec[3]).any())
     leaves = {k: v.detach().clone().requires_grad_(True)
               for k, v in split_params(port).items()}
     scene = dataclasses.replace(port, **leaves)
     geom = shade.pack_shade_geom(scene)
-    geom = shade.ShadeGeom(geom.tri_pack.detach(), geom.mat16.detach(),
-                           geom.ana16.detach())
+    spec = tr.ROUTES[route]
+    cut_geom = geom._replace(**{r: getattr(geom, r).detach()
+                                for r in spec.rows})
     cut = dataclasses.replace(scene, **{f: getattr(port, f)
-                                        for f in tr.REPLAY_FIELDS})
+                                        for f in spec.fields})
     carry = tr.Bounce(o, d, torch.ones(o.shape[0]), torch.zeros_like(o))
-    out = tr._replay_segment(cut, geom, carry, rec, "bilinear")
+    out = spec.step(cut, cut_geom, carry, rec, cfg)
     assert not any(y.requires_grad for y in out)
-    seg, tensors = tr._replay_cond(scene, geom, rec, "bilinear", "s", False)
-    assert len(tensors) == 2 + len(tr.REPLAY_FIELDS)
-    for f in tr.REPLAY_FIELDS:
-        assert any(t is leaves[f] for t in tensors), f
+    seg, tensors = tr._cond_segment(spec, scene, geom, rec, cfg, "s", False)
+    want = [getattr(geom, r) for r in spec.rows] + [leaves[f]
+                                                    for f in spec.fields]
+    assert len(tensors) == len(want)
+    assert all(t is w for t, w in zip(tensors, want))
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -637,6 +695,18 @@ def _count_calls(monkeypatch, mod, names):
     return counts
 
 
+def _count_step(monkeypatch, route: str):
+    """Counts the calls of ``tracer.ROUTES[route]``'s step by its name."""
+    spec = tr.ROUTES[route]
+    counts = {spec.step.__name__: 0}
+
+    def counted(*a):
+        counts[spec.step.__name__] += 1
+        return spec.step(*a)
+    monkeypatch.setitem(tr.ROUTES, route, spec._replace(step=counted))
+    return counts
+
+
 @pytest.mark.parametrize("what", list(LIVE_KINDS))
 def test_live_later_segment_matches_reference_and_its_work(what,
                                                            monkeypatch):
@@ -651,7 +721,8 @@ def test_live_later_segment_matches_reference_and_its_work(what,
     cam = live_scene(what, "port").camera
     fused = what == "fused"
     cfg = tr.TraceConfig(texture_filter="nearest")
-    assert cfg.fused_grad(port) == fused and port.n_segments == 3
+    assert cfg.replay_route(port) == ("fused_tri" if fused else "autograd")
+    assert port.n_segments == 3
     o, d = prender.primary_rays_blocked(cam, "cpu")
     topo = tr.trace_topology(port, o, d)
     live = (topo.hit | topo.miss).any(dim=1).tolist()
@@ -680,9 +751,8 @@ def test_live_later_segment_matches_reference_and_its_work(what,
         np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=k)
 
     n_live = sum(live)
-    names = (("segment_fwd", "segment_bwd") if fused
-             else ("_replay_segment",))
-    counts = _count_calls(monkeypatch, sg if fused else tr, names)
+    counts = (_count_calls(monkeypatch, sg, ("segment_fwd", "segment_bwd"))
+              if fused else _count_step(monkeypatch, "autograd"))
     case = dict(port=port, o=o, d=d)
     per_step = {}
     with branching():

@@ -1227,7 +1227,7 @@ def test_graphed_trace_shade_skips_dead_segments(cuda, fused, entry):
     graphs.clear()
     data, cam = _dead_scene(cuda)
     cfg = tr.TraceConfig(fused_shade_grad=fused)
-    assert cfg.fused_grad(data) == fused
+    assert (cfg.replay_route(data) != "autograd") == fused
     tgt = 0.9 * render(data, cam, cfg) + 0.02
     nodes = graphs.COUNTS["if_nodes"]
     if entry == "loss_grad":

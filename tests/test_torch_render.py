@@ -167,7 +167,7 @@ def test_unported_scene_kinds_raise(what, monkeypatch):
     port = to_port(ref)
     cam = _kind_scene(kind, "port").camera
     cfg = tr.TraceConfig(tri_method=method, texture_filter=filt)
-    assert not cfg.fused_grad(port)
+    assert cfg.replay_route(port) == "autograd"
     img = prender.render(prender.restore_mirror_chain(port), cam, cfg=cfg)
     assert bool(torch.isfinite(img).all())
     rng = np.random.default_rng(len(what))
@@ -213,10 +213,10 @@ def test_trace_shade_picks_the_segment_by_scene_content(monkeypatch):
     light (the reference's resolved_fused_shade_grad), the autograd
     replay on a scene with a sphere, whatever fused_shade_grad says."""
     calls = []
-    for name in ("_fused_segment", "_replay_segment"):
-        fn = getattr(tr, name)
-        monkeypatch.setattr(tr, name, lambda *a, _f=fn, _n=name: (
-            calls.append(_n), _f(*a))[1])
+    for name, route in tr.ROUTES.items():
+        monkeypatch.setitem(tr.ROUTES, name, route._replace(
+            step=lambda *a, _f=route.step, _n=name: (calls.append(_n),
+                                                     _f(*a))[1]))
     office_s = office("port", tess=2, w=32, h=32)
     sphere_s = _kind_scene("sphere", "port")
     for s in (office_s, sphere_s):
@@ -225,12 +225,14 @@ def test_trace_shade_picks_the_segment_by_scene_content(monkeypatch):
         topo = tr.trace_topology(data, o, d)
         calls.clear()
         tr.trace_shade(data, o, d, topo)
-        want = "_fused_segment" if s is office_s else "_replay_segment"
+        want = "fused_tri" if s is office_s else "autograd"
         assert calls and set(calls) == {want}, calls
     office_d = office_s.build(device="cpu")
-    assert tr.TraceConfig().fused_grad(office_d)
-    assert not tr.TraceConfig(fused_shade_grad=False).fused_grad(office_d)
-    assert not tr.TraceConfig().fused_grad(sphere_s.build(device="cpu"))
+    assert tr.TraceConfig().replay_route(office_d) == "fused_tri"
+    assert tr.TraceConfig(fused_shade_grad=False).replay_route(
+        office_d) == "autograd"
+    assert tr.TraceConfig().replay_route(
+        sphere_s.build(device="cpu")) == "autograd"
 
 
 def test_plain_config_runs_the_same_path_on_cpu():

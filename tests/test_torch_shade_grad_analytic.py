@@ -48,6 +48,7 @@ from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.parallel.shard_render import split_params
 from myraytracer_tpu_torch.scenes import golden, kinds
 
+from test_torch_cond import live_scene
 from test_torch_render import REF_API
 from test_torch_scene import mesh_scene, to_port
 
@@ -83,7 +84,7 @@ def _segment_of(data, cam, s, seed):
     carry = tr.Bounce(o, d, torch.ones(o.shape[0]), torch.zeros_like(o))
     for k in range(s):
         rec = tuple(getattr(topo, f)[k] for f in TOPO_FIELDS)
-        carry = tr._replay_segment(data, geom, carry, rec, "nearest")
+        carry = tr._replay_segment(data, geom, carry, rec, tr.TraceConfig())
     rec = tuple(getattr(topo, f)[s] for f in TOPO_FIELDS)
     g = torch.Generator().manual_seed(seed)
     w = carry.weight * (0.5 + torch.rand(o.shape[0], generator=g))
@@ -237,7 +238,7 @@ def _replay(data, args, leaves=()):
         light_pos=lp, light_color=lc, ambience=amb, background=bg)
     geom = shade.ShadeGeom(mat16.new_zeros((1, 32)), mat16, ana16)
     out = tr._replay_segment(sc, geom, tr.Bounce(o, d, w, torch.zeros_like(o)),
-                             (kind, idx, h, miss, shadow), "nearest")
+                             (kind, idx, h, miss, shadow), tr.TraceConfig())
     return out.color, out.o, out.d, out.weight
 
 
@@ -376,37 +377,46 @@ def test_route_by_primitive_kinds_textures_and_lights(what):
     data = _route_scene(what)
     want = ROUTE_CASES[what]
     assert tr.TraceConfig().replay_route(data) == want
-    assert tr.TraceConfig().fused_grad(data) == (want != "autograd")
+    assert want in tr.ROUTES
     off = tr.TraceConfig(fused_shade_grad=False)
-    assert off.replay_route(data) == "autograd" and not off.fused_grad(data)
+    assert off.replay_route(data) == "autograd"
+
+
+#: the scenes of the route test: o_04 (spheres and planes, 3 segments)
+#: and test_torch_cond's triangle-only mirror scene (3 segments)
+ROUTE_TALLY_SCENES = {
+    "molecule": lambda: golden.scene_04_molecule(scale=0.05, n_atoms=24),
+    "triangles": lambda: live_scene("fused", "port")}
 
 
 @pytest.mark.parametrize("checkpoint", [False, True])
 @pytest.mark.parametrize("fused", [True, False])
-def test_trace_shade_takes_the_route_and_tallies_it(monkeypatch, fused,
-                                                    checkpoint):
-    """trace_shade runs each segment of o_04 through K10/K11 (segment 0
-    directly, the others as conditional segments), or each through the
-    autograd replay under fused_shade_grad=False, counts each segment
-    in graphs.TALLIES by route, and gives the same colours either way."""
+@pytest.mark.parametrize("scene", list(ROUTE_TALLY_SCENES))
+def test_trace_shade_takes_the_route_and_tallies_it(monkeypatch, scene,
+                                                    fused, checkpoint):
+    """trace_shade runs each segment through its route's step (segment 0
+    directly, the others as conditional segments): o_04 through K10/K11
+    and a triangle-only scene through K5/K6, or each through the autograd
+    replay under fused_shade_grad=False; it counts each segment in
+    graphs.TALLIES by route, and gives the same colours either way."""
     calls = []
-    for nm in ("_fused_ana_segment", "_replay_segment", "_fused_segment"):
-        fn = getattr(tr, nm)
-        monkeypatch.setattr(tr, nm, lambda *a, _f=fn, _n=nm: (
-            calls.append(_n), _f(*a))[1])
-    sc = golden.scene_04_molecule(scale=0.05, n_atoms=24)
+    for nm, route in tr.ROUTES.items():
+        monkeypatch.setitem(tr.ROUTES, nm, route._replace(
+            step=lambda *a, _f=route.step, _n=nm: (calls.append(_n),
+                                                   _f(*a))[1]))
+    sc = ROUTE_TALLY_SCENES[scene]()
     data = sc.build(device="cpu")
     o, d = prender.primary_rays_blocked(sc.camera, "cpu")
     topo = tr.trace_topology(data, o, d)
     cfg = tr.TraceConfig(fused_shade_grad=fused)
     before = dict(graphs.TALLIES)
     c = tr.trace_shade(data, o, d, topo, cfg, checkpoint=checkpoint)
-    route = "fused_ana" if fused else "autograd"
+    route = ({"molecule": "fused_ana", "triangles": "fused_tri"}[scene]
+             if fused else "autograd")
     moved = {k: v - before.get(k, 0) for k, v in graphs.TALLIES.items()
              if v != before.get(k, 0)}
     assert moved == {f"replay.{route}": data.n_segments}
-    want = "_fused_ana_segment" if fused else "_replay_segment"
-    assert calls and set(calls) == {want}
+    assert calls and set(calls) == {route}
     ref = tr.trace(data, o, d)
     np.testing.assert_allclose(c.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
 
