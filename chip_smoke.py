@@ -29,7 +29,11 @@ nvcc. Phases:
      the time of the row scatter that a reverse without the row sum needs
      after it (index_add_ of the per-ray rows into tri_pack), the other
      half of the same function done that way; registers, spills and SASS
-     counts of K5 and K6;
+     counts of K5 and K6; then K12, the backward of the pack's material
+     gather, against its plain version on seeded cotangents of office's
+     shape: equal to the bit, twice and in a graph, within float rounding
+     of index_put_ with accumulation (PyTorch's backward of the gather),
+     both timed;
   8. the training step render_loss_grad_image at 480x270 three ways
      (kernels, plain versions, the autograd replay): losses and all 23
      gradients;
@@ -210,9 +214,10 @@ scan's kernels were not.
      first three calls; the image bit-equal to eager, the loss within
      rtol 1e-6 and the 23 gradients within REL_GRAD x max|g| of eager
      (phase 23's bars) and within rtol 1e-5 / REL_GRAD of the training
-     step (phase 24's); one launch of each of K2, K1, K1', K3, K4, K5 and
-     K6 per replayed call on "cluster" and of K7 (closest, any-hit), K3,
-     K4, K5 and K6 on "auto" (each kernel's diff_launches); on "cluster"
+     step (phase 24's); one launch of each of K2, K1, K1', K3, K4, K5,
+     K6 and K12 per replayed call on "cluster" and of K7 (closest,
+     any-hit), K3, K4, K5, K6 and K12 on "auto" (each kernel's
+     diff_launches); on "cluster"
      the pending rule (two forwards of one key, then one backward: the
      second runs eagerly, the gradients at phase 23's bars against
      all-eager; a dropped output frees the key) and max_memory_reserved
@@ -309,6 +314,13 @@ ANA_SEG_KERNELS = tuple(
      "(myraytracer_tpu/ops/shade.py resolve_hit)")
     for name in ("seg_ana_fwd", "seg_ana_bwd"))
 
+#: K12, the fixed-order row sum of the shade pack's material gather; it
+#: replaces no TPU kernel
+PACK_KERNELS = (
+    ("pack_rowsum", "myraytracer_tpu_torch/csrc/pack_rowsum.cu",
+     "none: the reference leaves the pack gather's scatter-add to XLA "
+     "(myraytracer_tpu/ops/shade.py pack_shade_geom)"),)
+
 #: K3/K4's analytic and texture branches, each its own summary entry:
 #: (entry, launch counter, source, TPU kernel, the scene whose first
 #: segment compares it and whose render_aa run counts its launches)
@@ -362,7 +374,8 @@ SYMBOLS = {"phase1_exact": "phase1_exact_kernel",
            "analytic_closest": "analytic_kernelILb0E",
            "analytic_anyhit": "analytic_kernelILb1E",
            "seg_ana_fwd": "seg_ana_fwd_kernel",
-           "seg_ana_bwd": "seg_ana_bwd_kernel"}
+           "seg_ana_bwd": "seg_ana_bwd_kernel",
+           "pack_rowsum": "rowsum_part_kernel"}
 
 #: the training scenes of phase 16 with their texture fetch
 TRAIN_GOLDENS = (("o_04_molecule", "nearest"), ("o_10_pokemon", "bilinear"))
@@ -928,6 +941,56 @@ def compare_segment_kernels(data, camera, report, ptxas, sass):
     report["seg_bwd"].update(
         resources("seg_bwd", ptxas, library().mrt_seg_bwd_smem(L)),
         **sass_counts("seg_bwd", sass))
+    compare_pack_rowsum(data, report, ptxas, sass)
+
+
+def compare_pack_rowsum(data, report, ptxas, sass):
+    """Phase 7, K12: the backward of the pack's material gather against
+    its plain version on seeded cotangents of office's shape (columns
+    32:48 of a [T, 48] table, as K6 leaves them): equal to the bit, twice
+    over and inside a CUDA graph; beside it PyTorch's backward of the
+    gather (index_put_ with accumulation), the call it replaces."""
+    import torch
+
+    from myraytracer_tpu_torch.ops import row_sum as rs
+
+    ids, M, T = data.tri_mat, data.mat_diffuse.shape[0], data.n_tris
+    gen = torch.Generator(device=ids.device)
+    gen.manual_seed(12)
+    g = torch.randn((T, 48), generator=gen, device=ids.device)[:, 32:]
+    got = rs.row_sum(g, ids, M)
+    check(torch.equal(got, rs.row_sum_plain(g, ids, M)),
+          "pack_rowsum: not equal to its plain version's bits")
+    check(torch.equal(rs.row_sum(g, ids, M), got),
+          "pack_rowsum: two runs differ")
+    ids_l = ids.long()
+    want = torch.zeros((M, 16), device=ids.device).index_put_(
+        (ids_l,), g, accumulate=True)
+    err = close_scaled("pack_rowsum vs index_put_", got, want, REL_COT)
+    out = torch.empty_like(got)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(rs.row_sum(g, ids, M))
+    graph.replay()
+    check(torch.equal(out, got), "pack_rowsum: a graph replay differs")
+    del graph
+    report["pack_rowsum"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=graph_ms(lambda: rs.row_sum(g, ids, M)),
+        plain_ms=time_ms(lambda: rs.row_sum_plain(g, ids, M), 3),
+        **bound(T * 16 * 4 + nbytes(ids, got), 0))
+    report["pack_rowsum"]["library_ms"] = graph_ms(
+        lambda: torch.zeros((M, 16), device=ids.device).index_put_(
+            (ids_l,), g, accumulate=True))
+    rep = report["pack_rowsum"]
+    print(f"pack_rowsum: {T} rows into {M} materials, equal to the plain "
+          f"version's bits (twice, and in a graph), {err:.3g} * max|a| "
+          f"from index_put_; {rep['ms']:.4f} ms against a bound of "
+          f"{rep['bound_ms']:.5f} ms ({rep['bound_by']}); plain "
+          f"{rep['plain_ms']:.2f} ms; index_put_ with accumulation "
+          f"{rep['library_ms']:.4f} ms")
+    report["pack_rowsum"].update(resources("pack_rowsum", ptxas),
+                                 **sass_counts("pack_rowsum", sass))
 
 
 def compare_training_paths(data, cam_small):
@@ -2847,7 +2910,7 @@ def diff_forward(dev: str, tess: int = 10, full=(1920, 1080)) -> None:
         share = render_bar(f"{what} image vs no-grad", img, img_ng)
         per_call = {k: v // 3 for k, v in launches.items() if v}
         kernels = (FWD_KERNELS if method == "cluster" else BVH_FWD_KERNELS
-                   ) + ("seg_fwd", "seg_bwd")
+                   ) + ("seg_fwd", "seg_bwd", "pack_rowsum")
         for k in kernels:
             check(per_call.get(k, 0) > 0, f"{what}: {k} was not launched")
         if method != "cluster":
@@ -3100,7 +3163,7 @@ def graphed_diff(report: dict, dev: str, tess: int = 10,
             return unclamped_loss_grads(data, camera, target, cfg)
         (loss, grads, _), _, r = graphed_diff_vs_eager(what, fn)
         kernels = (FWD_KERNELS if method == "cluster" else BVH_FWD_KERNELS
-                   ) + ("seg_fwd", "seg_bwd")
+                   ) + ("seg_fwd", "seg_bwd", "pack_rowsum")
         check(r["launches"] == {k: 1 for k in kernels}, f"{what}: launches "
               f"per replayed call {r['launches']}, not one of each of "
               f"{kernels}")
@@ -3253,7 +3316,9 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
         check(launches[name] > 0,
               f"{name} was not launched by the training step")
         report[name]["train_launches"] = launches[name]
-    for name in ("seg_fwd", "seg_bwd"):
+    check(launches["pack_rowsum"] > 0,
+          "pack_rowsum was not launched by the training step")
+    for name in ("seg_fwd", "seg_bwd", "pack_rowsum"):
         report[name]["launches"] = launches[name]
 
     losses = train_steps(data, scene.camera)
@@ -3349,7 +3414,8 @@ def main(argv=None) -> int:
         sass = None
     report = run(kernels.kernel_resources(log), sass)
     entries = [(n, src, rep) for n, src, rep in
-               KERNELS + BVH_KERNELS + ANALYTIC_KERNELS + ANA_SEG_KERNELS] + [
+               KERNELS + BVH_KERNELS + ANALYTIC_KERNELS + ANA_SEG_KERNELS
+               + PACK_KERNELS] + [
         (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,
                     **report[name]) for name, src, rep in entries]

@@ -67,6 +67,7 @@ LAUNCHES = {
     "bvh_walk_anyhit": 0,
     "analytic_closest": 0,
     "analytic_anyhit": 0,
+    "pack_rowsum": 0,
 }
 
 _P = ctypes.c_void_p
@@ -83,6 +84,7 @@ _SIGNATURES = {
     "mrt_seg_ana_bwd": [_P] * 18 + [_I] * 6 + [_P] * 9,
     "mrt_bvh_walk": [_P] * 9 + [_I] * 4 + [_P],
     "mrt_analytic": [_P] * 10 + [_I] * 6 + [_P],
+    "mrt_pack_rowsum": [_P, _I, _P, _I, _I, _P, _P, _P],
     # CUDA-graph IF nodes (graph_cond.cu; ops/graphs.if_node): pred,
     # the capturing stream, the body's stream; the body's stream
     "mrt_if_node_begin": [_P] * 3,
@@ -107,6 +109,7 @@ _SMEM_SIZES = {
 #: arguments (a long long)
 _WORKSPACE_SIZES = {
     "mrt_seg_ana_bwd_workspace": [_I] * 7,
+    "mrt_pack_rowsum_workspace": [_I] * 2,
 }
 
 _lib = None

@@ -428,7 +428,7 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg: tr.TraceConfig,
 
     total = None
     mark("replay", dev)
-    geom = shade.pack_shade_geom(merged)
+    geom = shade.pack_shade_geom(merged, cfg.plain)
     for ot, dt, tt, wt, tp in zip(o_t, d_t, t_t, w_t, topo):
         c = tr.trace_shade(merged, ot, dt, tp, cfg, geom, checkpoint=True)
         part = torch.sum(wt[:, None] * (c - tt) ** 2)

@@ -22,8 +22,10 @@ reference layout:
 The pack is an ordinary differentiable function of the scene's tensors
 (no detach): built once per training pass, its gather backward carries
 the row cotangents back to ``vertex_pos``, ``vertex_normal`` and the
-material table once. :func:`resolve_hit` (the training replay) resolves
-every kind and the texture override.
+material table once; the material gather's backward is K12
+(ops/row_sum.py) where the table requires a gradient.
+:func:`resolve_hit` (the training replay) resolves every kind and the
+texture override.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from myraytracer_tpu_torch.ops import intersect as isx
+from myraytracer_tpu_torch.ops import row_sum
 from myraytracer_tpu_torch.ops import texture as tex
 from myraytracer_tpu_torch.utils import vecmath as vm
 
@@ -113,8 +116,11 @@ def pack_ana16(scene) -> torch.Tensor:
             else torch.zeros((1, 16), **f32))
 
 
-def pack_shade_geom(scene) -> ShadeGeom:
-    """Build the packed rows of a scene (layout in the module doc)."""
+def pack_shade_geom(scene, plain: bool = False) -> ShadeGeom:
+    """Build the packed rows of a scene (layout in the module doc).
+
+    ``plain``: the material gather's backward runs K12's plain version
+    (``row_sum.gather_rows``) on any device."""
     mat16 = pack_mat16(scene)
     ana16 = pack_ana16(scene)
     if not scene.n_tris:
@@ -141,7 +147,8 @@ def pack_shade_geom(scene) -> ShadeGeom:
     parts = [pos9, uv6, vp.new_zeros((T, 1)),                       # 0:16
              nrm9, flag, mat_f, tex_f, vp.new_zeros((T, 2))]        # 16:32
     if not has_analytic(scene):
-        parts.append(mat16[scene.tri_mat.long()])                   # 32:48
+        parts.append(                                               # 32:48
+            row_sum.gather_rows(mat16, scene.tri_mat, plain))
     return ShadeGeom(tri_pack=torch.cat(parts, dim=1).contiguous(),
                      mat16=mat16.contiguous(), ana16=ana16)
 

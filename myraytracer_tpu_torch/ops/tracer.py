@@ -212,7 +212,7 @@ def pack_trace(scene, cfg: TraceConfig = TraceConfig()) -> TracePack:
             tri_flat = trv.pack_tri_vertices(scene).detach().contiguous()
     return TracePack(
         cl_rows=cl_rows, tri_flat=tri_flat,
-        geom=shade.pack_shade_geom(scene),
+        geom=shade.pack_shade_geom(scene, cfg.plain),
         env=torch.cat([scene.ambience, scene.background]).contiguous())
 
 
@@ -899,7 +899,7 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     route = ROUTES[name]
     recompute = checkpoint and route.recompute
     if geom is None:
-        geom = shade.pack_shade_geom(scene)
+        geom = shade.pack_shade_geom(scene, cfg.plain)
     R = o.shape[0]
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=o.device),
                    color=torch.zeros((R, 3), device=o.device))

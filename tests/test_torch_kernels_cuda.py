@@ -26,7 +26,8 @@ per-ray outputs at the shading bar (the same expressions in the same
 order); K11's table and environment sums, taken in a fixed order of its
 own (no atomics), within 5e-4 and 3e-5 * max|plain| of the plain
 version's index_add_ and sum() (their order differs), and equal to the
-bit from run to run.
+bit from run to run. The pack's material row sum (K12), which sums in
+the plain version's order with no atomics: equal to it to the bit.
 """
 
 import numpy as np
@@ -41,6 +42,7 @@ from myraytracer_tpu_torch.ops import cuda_analytic as ca
 from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import graphs
+from myraytracer_tpu_torch.ops import row_sum as rs
 from myraytracer_tpu_torch.ops import shade, tracer as tr
 from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops import shade_grad_ana as sga
@@ -1745,3 +1747,98 @@ def test_ana_segment_wrappers_reject_bad_inputs(cuda):
         sga.segment_ana_bwd(*args, counts, *cots[:3], cots[3].cpu())
     with pytest.raises(ValueError, match="rows"):
         sga.segment_ana_fwd(*args, (counts[0] + 1, counts[1]))
+
+
+# --- K12: the pack's material row sum (ops/row_sum.py) ---------------------
+
+def _rowsum_inputs(dev, case, seed):
+    """(g [T, 16], a column slice of a seeded [T, 48] cotangent as K6
+    leaves it; ids [T] i32; M): office's triangles and materials, or a
+    ragged batch with an empty material, or one row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if case == "office":
+        data = scene_08_office(tess=10, resolution=(64, 36)).build(device=dev)
+        ids, M = data.tri_mat, data.mat_diffuse.shape[0]
+    else:
+        T, M = {"ragged": (3001, 5), "one": (1, 1)}[case]
+        ids = torch.randint(0, M, (T,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[ids == 3] = 4
+    g = torch.randn((ids.shape[0], 48), generator=gen, device=dev)[:, 32:]
+    return g, ids, M
+
+
+@pytest.mark.parametrize("case", ["office", "ragged", "one"])
+def test_pack_rowsum_kernel_equals_plain_to_the_bit(cuda, case):
+    """K12 equals its plain version to the bit (run on the card and on
+    the CPU), twice, and lies within float rounding of index_add_."""
+    g, ids, M = _rowsum_inputs(cuda, case, seed=23)
+    before = LAUNCHES["pack_rowsum"]
+    got = rs.row_sum(g, ids, M)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pack_rowsum"] == before + 1
+    assert torch.equal(got, rs.row_sum_plain(g, ids, M))
+    assert torch.equal(got.cpu(), rs.row_sum_plain(g.cpu(), ids.cpu(), M))
+    assert torch.equal(rs.row_sum(g, ids, M), got)
+    assert torch.equal(rs.row_sum(g.contiguous(), ids, M), got)
+    want = torch.zeros((M, 16), device=cuda).index_add_(0, ids.long(), g)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    if case == "ragged":
+        assert not bool(got[3].any())
+
+
+def test_pack_rowsum_kernel_replays_in_a_graph(cuda):
+    """K12 captured in a CUDA graph gives the eager call's bits, replay
+    after replay."""
+    g, ids, M = _rowsum_inputs(cuda, "office", seed=29)
+    want = rs.row_sum(g, ids, M)
+    out = torch.empty_like(want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(rs.row_sum(g, ids, M))
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_graphed_office_fit_step_takes_the_row_sum(cuda):
+    """The office fit step (mat_diffuse and light_color, K5/K6) replayed
+    from its graph takes K12 once a step (tally ``pack.rowsum``, the
+    launch) and PyTorch's gather backward never; its losses equal the
+    eager run's within rtol 1e-5 and its leaves within 5e-4 x max|eager|
+    (K6 sums its cotangents with atomics in a run-dependent order)."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+
+    graphs.clear()
+    data, cam = _graph_office(cuda)
+    cfg = tr.TraceConfig()
+    tgt = 0.9 * render(data, cam, cfg) + 0.02
+    xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+
+    def fn():
+        inv = InverseRenderer(data, ("mat_diffuse", "light_color"),
+                              optimizer=adam(0.02), camera=cam, cfg=cfg)
+        losses = [inv.fit_pixels(xs, ys, tgt.reshape(-1, 3),
+                                 steps=1).losses[0] for _ in range(4)]
+        return losses, {k: v.detach().clone() for k, v in inv.params.items()}
+
+    want, l_eager = _eager(fn)
+    assert l_eager["pack_rowsum"] == 4 and l_eager["seg_bwd"] == 4
+    got = fn()                          # warm-ups, a capture, a replay
+    assert graphs.tallies("fit_step") == {"replay.fused_tri": 1,
+                                          "pack.rowsum": 1}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any("rowsum_part_kernel" in n for n in names)
+    assert not any("indexing_backward" in n for n in names)
+    for run in (got, again):
+        np.testing.assert_allclose(run[0], want[0], rtol=1e-5)
+        for k in want[1]:
+            _close_scaled(run[1][k], want[1][k], k, rel=5e-4)
