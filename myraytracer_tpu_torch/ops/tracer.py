@@ -72,8 +72,10 @@ never on its path.
 Device phase marks (utils/profiling.mark) split a segment's device time:
 ``segment`` at its start (inside an IF node's body for segments 1..,
 so a skipped segment leaves no mark), ``analytic`` before the dense
-analytic tests, ``tri`` before each triangle query, ``shade`` before K3,
-K4, K5, K10 or the autograd replay.
+analytic tests, ``tri`` before each triangle query of segment 0 and
+``tri.bounce`` before each of a later segment (the reflected rays' walks
+apart from the primary rays'), ``shade`` before K3, K4, K5, K10 or the
+autograd replay.
 """
 
 from __future__ import annotations
@@ -352,8 +354,8 @@ class TraceTopo(NamedTuple):
 
 
 def closest_hit(scene, pack: TracePack, o, d, live,
-                cfg: TraceConfig = TraceConfig()):
-    """Closest hit of each ray over every primitive kind.
+                cfg: TraceConfig = TraceConfig(), seg: int = 0):
+    """Closest hit of each ray over every primitive kind in segment ``seg``.
 
     Analytic kinds first, triangles (``cfg.tri_method``) last, merged
     with strict <. Returns (kind [R] i32, KIND_MISS for dead rays; pidx
@@ -363,7 +365,7 @@ def closest_hit(scene, pack: TracePack, o, d, live,
     kind, pidx, aidx, t = _closest_analytic(scene, o, d, pack.geom.ana16,
                                             cfg.plain)
     if scene.n_tris:
-        tri = _tri_query(scene, pack, o, d, live, cfg)
+        tri = _tri_query(scene, pack, o, d, live, cfg, seg=seg)
         better = tri.t < t
         kind = torch.where(better, shade.KIND_TRI, kind)
         pidx = torch.where(better, torch.clamp(tri.idx, min=0), pidx)
@@ -373,14 +375,19 @@ def closest_hit(scene, pack: TracePack, o, d, live,
 
 
 def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
-               t_max=None, any_hit: bool = False) -> trv.TriHit:
-    """The one triangle query of a segment, by ``cfg.resolved_method()``.
+               t_max=None, any_hit: bool = False, seg: int = 0
+               ) -> trv.TriHit:
+    """The one triangle query of a segment, by ``cfg.resolved_method()``,
+    marked ``tri`` in segment 0 and ``tri.bounce`` in a later ``seg``.
 
     "brute" has no any-hit mode and no mask: it answers occlusion as the
     reference's ``_closest_tris`` does, with a closest query below
     ``t_max`` (idx >= 0 means occluded), masked here with ``active``.
     """
-    mark("tri", o.device)
+    if seg:
+        mark("tri.bounce", o.device)
+    else:
+        mark("tri", o.device)
     method = cfg.resolved_method()
     if method == "cluster":
         return cc.intersect_clusters(scene, o, d, t_max=t_max,
@@ -400,8 +407,10 @@ def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
 
 
 def shadow_mask(scene, pack: TracePack, so, sd, st, sact,
-                cfg: TraceConfig = TraceConfig()) -> torch.Tensor:
-    """Occlusion of K3's light-major shadow batch -> [L*R] i32.
+                cfg: TraceConfig = TraceConfig(), seg: int = 0
+                ) -> torch.Tensor:
+    """Occlusion of K3's light-major shadow batch of segment ``seg`` ->
+    [L*R] i32.
 
     The triangle method's occlusion query OR-ed with the dense analytic
     occlusion, both for the active shadow rays only.
@@ -410,7 +419,7 @@ def shadow_mask(scene, pack: TracePack, so, sd, st, sact,
     shadow = torch.zeros_like(cast)
     if scene.n_tris and cast.numel():
         occ = _tri_query(scene, pack, so, sd, cast, cfg, t_max=st,
-                         any_hit=True)
+                         any_hit=True, seg=seg)
         shadow = occ.idx >= 0
     if shade.has_analytic(scene):
         shadow = shadow | _analytic_occlusion(scene, so, sd, st, cast,
@@ -442,7 +451,7 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
     o = carry.o.contiguous()
     d = carry.d.contiguous()
 
-    kind, pidx, aidx, t = closest_hit(scene, pack, o, d, live, cfg)
+    kind, pidx, aidx, t = closest_hit(scene, pack, o, d, live, cfg, seg)
     valid = kind != shade.KIND_MISS
     zero_i = torch.zeros_like(pidx)
     idx = torch.where(valid, pidx, zero_i) if record else None
@@ -459,7 +468,8 @@ def segment_step(scene, pack: TracePack, carry: Bounce,
         geom.ana16, geom.mat16, scene.light_pos, scene.texels.shape[0],
         None if counts is None else counts[seg], cond)
 
-    shadow = shadow_mask(scene, pack, so, sd, st, sact, cfg).reshape(L, R)
+    shadow = shadow_mask(scene, pack, so, sd, st, sact, cfg,
+                         seg).reshape(L, R)
 
     phong = cs.shade_phong_plain if cfg.plain else cs.shade_phong
     mark("shade", o.device)

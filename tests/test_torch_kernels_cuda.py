@@ -1347,7 +1347,11 @@ def test_graphed_render_aa_spans_marks_and_nodes(cuda):
     frame()
     nodes = {e: graphs.nodes(e) for e in ("render", "aa_refine")}
     host, phases, dev = _profiled(frame)
-    seg = ["segment", "tri", "shade", "tri", "shade"] * data.n_segments
+    # segment 0's triangle queries mark ``tri``, a later segment's
+    # ``tri.bounce`` (office has one segment)
+    seg = (["segment", "tri", "shade", "tri", "shade"]
+           + ["segment", "tri.bounce", "shade", "tri.bounce", "shade"]
+           * (data.n_segments - 1))
     assert phases == (["rays"] + seg + ["end", "aa.select"] + seg
                       + ["aa.apply", "end"])
     for entry in ("render", "aa_refine"):
@@ -1393,6 +1397,11 @@ def test_skipped_bodies_leave_no_segment_marks(cuda, entry):
     traces = 1 if entry == "render" else 2
     assert eager.count("segment") == 4 * traces
     assert replay.count("segment") == 2 * traces, (replay, len(dev))
+    # the triangle queries (closest and shadow) of the one traversing
+    # trace: segment 0's marked ``tri``, the later ones' ``tri.bounce``
+    assert eager.count("tri") == replay.count("tri") == 2
+    assert eager.count("tri.bounce") == 2 * 3
+    assert replay.count("tri.bounce") == 2, replay
     label = "render" if entry == "render" else "fit_step"
     g = next(e.forward for e in graphs._CACHE.values()
              if e.forward is not None and e.name == label)

@@ -6,10 +6,12 @@ entry points and the fit loop record their ``mrt.*`` spans, and with the
 CUDA-graph machinery stood in for (as tests/test_torch_diff_graphs.py
 does), ``graphs.run``'s key, stage, launch and clone spans, its set-up
 seconds and its evictions. Device marks: on CPU tensors a mark launches
-nothing and counts no launch; the phase table is unique and every call
-site names one of its phases; no mark is made while a backward runs;
-and the marks each entry point makes, in order, on office and o_04 (an
-office frame makes 13, a fit step 11, each graph adding ``end``).
+nothing and counts no launch; the phase table is unique, keeps every
+earlier phase's index, and every call site names one of its phases; no
+mark is made while a backward runs; and the marks each entry point
+makes, in order, on office and o_04 (an office frame makes 13, a fit
+step 11, each graph adding ``end``), and on the o_09 rings, whose later
+segments mark their triangle queries ``tri.bounce``.
 """
 
 import ast
@@ -30,7 +32,8 @@ from myraytracer_tpu_torch.ops import render as R
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch import inverse as I
 from myraytracer_tpu_torch.scenes.golden import (scene_04_molecule,
-                                                 scene_08_office)
+                                                 scene_08_office,
+                                                 scene_09_rings)
 from myraytracer_tpu_torch.utils import profiling
 
 # one intra-op thread per process (several pytest workers share the host)
@@ -47,6 +50,13 @@ def _office(resolution=(32, 24)):
 
 def _molecule():
     s = scene_04_molecule(scale=0.05, n_atoms=24)
+    return s.build(device="cpu"), s.camera
+
+
+def _rings():
+    """o_09's two Phong mirror tori at 35 x 25, 8 x 4 segments each (128
+    triangles), max_depth 3."""
+    s = scene_09_rings(scale=0.05, seg=8)
     return s.build(device="cpu"), s.camera
 
 
@@ -271,8 +281,24 @@ def test_phase_table_is_unique_and_every_call_site_names_a_phase():
     assert n == len(profiling.PHASES)
 
 
+#: the phase table before ``tri.bounce``: a trace's marks are read by
+#: their index, so each of these keeps it
+EARLIER_PHASES = ("rays", "segment", "analytic", "tri", "shade", "aa.select",
+                  "aa.apply", "refit", "topology", "replay", "backward",
+                  "fit.topology", "fit.replay", "fit.backward", "fit.adam",
+                  "end")
+
+
+def test_phase_table_keeps_every_earlier_index():
+    n = len(EARLIER_PHASES)
+    assert profiling.PHASES[:n] == EARLIER_PHASES
+    assert profiling.PHASES[n:] == ("tri.bounce",)
+    assert "tri.bounce" in profiling.TRACE_PHASES
+
+
 @pytest.mark.parametrize("name, phase", [
     ("void mrt_mark<3>()", "tri"), ("mrt_mark<15>", "end"),
+    ("void mrt_mark<16>()", "tri.bounce"),
     ("void mrt_mark<(int)0>()", "rays"),
     ("void (anonymous namespace)::bvh_walk_kernel<false>(float const*)",
      None), ("mrt.graphs.launch render", None)])
@@ -330,6 +356,8 @@ def _recorded(monkeypatch):
 
 SEGMENT_TRI = ["segment", "tri", "shade", "tri", "shade"]
 SEGMENT_ANA = ["segment", "analytic", "shade", "analytic", "shade"]
+#: a later segment of a triangle scene: its closest and shadow queries
+SEGMENT_BOUNCE = ["segment", "tri.bounce", "shade", "tri.bounce", "shade"]
 
 
 @pytest.mark.parametrize("scene", ["office", "molecule"])
@@ -360,6 +388,28 @@ def test_marks_of_a_fit_step(monkeypatch, scene):
                    + ["fit.replay"] + replay + ["fit.backward", "fit.adam"])
     if scene == "office":
         assert len(seq) + 1 <= 12           # with the graph's ``end``
+
+
+@pytest.mark.parametrize("entry", ["render_aa", "trace_topology"])
+def test_marks_of_mirror_segments(monkeypatch, entry):
+    """On the rings (4 segments, triangles only), segment 0's closest and
+    shadow queries mark ``tri`` and every later segment's ``tri.bounce``,
+    in a frame's two passes and in the topology pass alike."""
+    data, cam = _rings()
+    trace = SEGMENT_TRI + SEGMENT_BOUNCE * (data.n_segments - 1)
+    with _recorded(monkeypatch) as seq:
+        if entry == "render_aa":
+            R.render_aa(data, cam, tr.TraceConfig(tri_method="auto"),
+                        budget_frac=0.05)
+        else:
+            o, d = cam.primary_rays(*cam.pixel_grid(torch.device("cpu")))
+            tr.trace_topology(data, o.reshape(-1, 3), d.reshape(-1, 3),
+                              tr.TraceConfig(tri_method="auto"))
+    assert data.n_segments == 4 and data.n_spheres == data.n_planes == 0
+    if entry == "render_aa":
+        assert seq == ["rays"] + trace + ["aa.select"] + trace + ["aa.apply"]
+    else:
+        assert seq == trace
 
 
 def test_marks_of_a_training_step(monkeypatch):
