@@ -78,7 +78,15 @@ nvcc. Phases:
      launches them), issue slots per warp step, registers, spills and
      SASS counts;
      beside it, on the same rays, the cluster scan's K2 + K1 and K1'
-     times and its ids' agreement with K7's;
+     times and its ids' agreement with K7's; then the list walk of the
+     bounce segments on the rings (o_09, 700x500, 8,192 triangles):
+     segment 1's closest query and its shadow query, recorded from a
+     render with the live masks it made, through KL (the list of the
+     live rays, traverse.walk_list) against its plain version (ids,
+     count, the dead rays' misses) and through K7's listed launch
+     against the plain walk and K7's launch over the whole batch, to the
+     bit; KL's and each listed walk's ms, bound, registers and SASS, and
+     KL's launches in one graphed render_aa of the rings (12);
  14. office at 1920x1080 with tri_method="bvh": render, render_aa and
      render_loss_grad_image, each warm and three times (median seconds,
      launches of that run: the walk launched, no cluster kernel), held
@@ -300,6 +308,13 @@ BVH_KERNELS = tuple(
      "tools/studies/pallas_traverse.py:79")
     for name in ("bvh_walk_closest", "bvh_walk_anyhit"))
 
+#: KL, the list of a bounce query's live rays that K7 walks; it replaces
+#: no TPU kernel
+WALK_LIST_KERNELS = (
+    ("bvh_walk_list", "myraytracer_tpu_torch/csrc/bvh_walk.cu",
+     "none: the reference's walk runs over the whole batch "
+     "(tools/studies/pallas_traverse.py:79)"),)
+
 #: K8, the dense analytic tests; it replaces no TPU kernel
 ANALYTIC_KERNELS = tuple(
     (name, "myraytracer_tpu_torch/csrc/analytic.cu",
@@ -371,6 +386,7 @@ SYMBOLS = {"phase1_exact": "phase1_exact_kernel",
            "seg_bwd": "seg_bwd_kernel",
            "bvh_walk_closest": "bvh_walk_kernelILb0E",
            "bvh_walk_anyhit": "bvh_walk_kernelILb1E",
+           "bvh_walk_list": "walk_list_kernel",
            "analytic_closest": "analytic_kernelILb0E",
            "analytic_anyhit": "analytic_kernelILb1E",
            "seg_ana_fwd": "seg_ana_fwd_kernel",
@@ -1547,6 +1563,141 @@ def compare_bvh_walk(data, camera, report, ptxas, sass):
           f"{report['bvh_walk_anyhit']['ms']:.4f} ms vs K1' {k1a:.4f} ms "
           f"(whole hull query {qa:.4f} ms), occlusion agrees on "
           f"{occ_agree:.6f}")
+
+
+def bounce_queries(data, camera, cfg) -> list:
+    """The listed triangle queries (segments 1..) of one eager ``render``
+    of ``data``: (o, d, keyword arguments) of each, in call order."""
+    from myraytracer_tpu_torch.ops import traverse as trv
+    from myraytracer_tpu_torch.ops.graphs import disable_graphs
+    from myraytracer_tpu_torch.ops.render import render
+
+    got, orig = [], trv.traverse_bvh
+
+    def spy(scene, o, d, **kw):
+        if kw.get("listed"):
+            got.append((o.clone(), d.clone(), dict(kw)))
+        return orig(scene, o, d, **kw)
+    trv.traverse_bvh = spy
+    try:
+        with disable_graphs():
+            render(data, camera, cfg=cfg)
+    finally:
+        trv.traverse_bvh = orig
+    return got
+
+
+def compare_walk_list(scenes, report, ptxas, sass):
+    """Phase 13, second part: KL and K7's listed launches on the rings'
+    segment-1 queries at 700x500 against their plain versions, timed;
+    KL's launches in one graphed render_aa of the rings."""
+    import torch
+
+    from myraytracer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from myraytracer_tpu_torch.ops import traverse as trv
+    from myraytracer_tpu_torch.ops import tracer as tr
+    from myraytracer_tpu_torch.ops.graphs import count_bodies
+    from myraytracer_tpu_torch.ops.render import render_aa
+    from myraytracer_tpu_torch.scenes.golden import GOLDEN_SCENES
+
+    scene, data = scenes["o_09_rings"]
+    cam = scene.camera
+    check((cam.width, cam.height, data.n_tris) == (700, 500, 8192),
+          f"rings: {cam.width}x{cam.height}, {data.n_tris} triangles")
+    cfg = tr.TraceConfig(tri_method="bvh")
+    queries = bounce_queries(data, cam, cfg)
+    check(len(queries) == 6, f"rings render: {len(queries)} listed queries")
+    closest = next(q for q in queries if not q[2]["any_hit"])
+    shadow = next(q for q in queries if q[2]["any_hit"])
+
+    # KL on segment 1's closest query's mask
+    active = closest[2]["active"]
+    R = active.shape[0]
+    check(R == 360_448, f"rings segment 1: {R} rays")
+    ids, t_p, idx_p = trv.walk_list_plain(active)
+    n = ids.numel()
+    lst, n_list, t, idx = trv.walk_list(active)
+    check(int(n_list) == n, f"bvh_walk_list: {int(n_list)} listed, plain {n}")
+    check(bool(torch.equal(torch.sort(lst[:n].long()).values, ids)),
+          "bvh_walk_list: the listed ids differ from the live rays")
+    dead = ~active
+    check(bool(torch.equal(t[dead], t_p[dead]))
+          and bool(torch.equal(idx[dead], idx_p[dead])),
+          "bvh_walk_list: the dead rays' misses differ")
+    check(trv.list_workspace(active.device).tolist() == [0, 0],
+          "bvh_walk_list: the workspace was not left zero")
+    rep = dict(max_abs_err=0.0, rays=R, listed=n,
+               ms=graph_ms(lambda: trv.walk_list(active)),
+               cast_ms=graph_ms(lambda: active.to(torch.int32)),
+               plain_ms=time_ms(lambda: trv.walk_list_plain(active), 3),
+               **bound(R + 8 * (R - n) + 4 * n + 4, 0))
+    print(f"bvh_walk_list: rings segment 1, {R} rays, {n} live, ids, count "
+          f"and misses equal to the plain version; {rep['ms']:.4f} ms (the "
+          f"int32 cast it replaces {rep['cast_ms']:.4f} ms) vs plain "
+          f"{rep['plain_ms']:.3f} ms; bound {rep['bound_ms']:.4f} ms "
+          f"({rep['bound_by']})")
+    rep.update(resources("bvh_walk_list", ptxas),
+               **sass_counts("bvh_walk_list", sass))
+
+    # K7's listed launches: to the bit against the plain walk and against
+    # K7 over the whole batch
+    for name, (o, d, kw) in (("bvh_walk_closest", closest),
+                             ("bvh_walk_anyhit", shadow)):
+        kw = {k: v for k, v in kw.items() if k not in ("listed", "plain")}
+        mask = kw["active"]
+        got = trv.traverse_bvh(data, o, d, listed=True, **kw)
+        whole = trv.traverse_bvh(data, o, d, **kw)
+        work = {}
+        want = trv.traverse_bvh_plain(data, o, d, stats=work, **kw)
+        for what, ref in (("the plain walk", want), ("the whole batch", whole)):
+            check(bool(torch.equal(got.idx, ref.idx))
+                  and bool(torch.equal(got.t, ref.t)),
+                  f"{name} listed: t or idx differ from {what}")
+        live = int(mask.sum())
+        t0 = (torch.full((o.shape[0],), trv.INF, device=o.device)
+              if kw.get("t_max") is None
+              else kw["t_max"].to(torch.float32).contiguous())
+        walk = (o.contiguous(), d.contiguous(), t0, None,
+                data.bvh_nodes_packed.contiguous(),
+                data.bvh_links_packed.contiguous(), kw["tri_flat"],
+                bool(kw.get("any_hit")))
+        held = trv.walk_list(mask.contiguous())
+        lrep = dict(rays=o.shape[0], live=live,
+                    ms=graph_ms(lambda: trv.bvh_walk(*walk, held)),
+                    with_list_ms=graph_ms(lambda: trv.traverse_bvh(
+                        data, o, d, listed=True, **kw)),
+                    whole_batch_ms=graph_ms(lambda: trv.traverse_bvh(
+                        data, o, d, **kw)),
+                    lanes_busy=work["lanes_busy_list"],
+                    warp_steps=work["warp_steps_list"],
+                    **walk_bound(live, work))
+        report[name]["listed"] = lrep
+        print(f"{name} listed: rings segment 1, {lrep['rays']} rays, {live} "
+              f"live, t and idx equal to the plain walk and to K7 over the "
+              f"whole batch; the walk {lrep['ms']:.4f} ms, with KL "
+              f"{lrep['with_list_ms']:.4f} ms, over the whole batch "
+              f"{lrep['whole_batch_ms']:.4f} ms; bound {lrep['bound_ms']:.4f}"
+              f" ms ({lrep['bound_by']}); lanes busy "
+              f"{lrep['lanes_busy']:.4f} over {lrep['warp_steps']} warp "
+              f"steps in list order")
+
+    # KL's launches in one graphed render_aa (IF-node bodies counted)
+    budget = GOLDEN_SCENES["o_09_rings"][1]
+    for _ in range(3):                    # warm-up, capture, replay
+        render_aa(data, cam, budget_frac=budget, cfg=cfg)
+    torch.cuda.synchronize()
+    count_bodies()
+    reset_launches()
+    render_aa(data, cam, budget_frac=budget, cfg=cfg)
+    torch.cuda.synchronize()
+    count_bodies()
+    rep["launches"] = LAUNCHES["bvh_walk_list"]
+    check(rep["launches"] == 12, f"rings render_aa: {rep['launches']} "
+          f"bvh_walk_list launches, not 12")
+    print(f"bvh_walk_list: {rep['launches']} launches in one graphed rings "
+          f"render_aa (K7 closest {LAUNCHES['bvh_walk_closest']}, any hit "
+          f"{LAUNCHES['bvh_walk_anyhit']})")
+    report["bvh_walk_list"] = rep
 
 
 def office_bvh(data, camera, report):
@@ -3332,6 +3483,7 @@ def run(ptxas: dict, sass, dev: str = "cuda:0", tess: int = 10,
     gallery(scenes, dev, report)
     office_aa(data, scene.camera)
     compare_bvh_walk(data, scene.camera, report, ptxas, sass)
+    compare_walk_list(scenes, report, ptxas, sass)
     office_bvh(data, scene.camera, report)
     gallery_bvh(scenes)
     train_goldens(scenes, report)
@@ -3414,8 +3566,8 @@ def main(argv=None) -> int:
         sass = None
     report = run(kernels.kernel_resources(log), sass)
     entries = [(n, src, rep) for n, src, rep in
-               KERNELS + BVH_KERNELS + ANALYTIC_KERNELS + ANA_SEG_KERNELS
-               + PACK_KERNELS] + [
+               KERNELS + BVH_KERNELS + WALK_LIST_KERNELS + ANALYTIC_KERNELS
+               + ANA_SEG_KERNELS + PACK_KERNELS] + [
         (entry, src, rep) for entry, _, src, rep, _ in BRANCHES]
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,
                     **report[name]) for name, src, rep in entries]

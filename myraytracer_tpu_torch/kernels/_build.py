@@ -65,6 +65,7 @@ LAUNCHES = {
     "seg_ana_bwd": 0,
     "bvh_walk_closest": 0,
     "bvh_walk_anyhit": 0,
+    "bvh_walk_list": 0,
     "analytic_closest": 0,
     "analytic_anyhit": 0,
     "pack_rowsum": 0,
@@ -82,7 +83,8 @@ _SIGNATURES = {
     "mrt_seg_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 2 + [_P] * 6,
     "mrt_seg_ana_fwd": [_P] * 14 + [_I] * 4 + [_P] * 5,
     "mrt_seg_ana_bwd": [_P] * 18 + [_I] * 6 + [_P] * 9,
-    "mrt_bvh_walk": [_P] * 9 + [_I] * 4 + [_P],
+    "mrt_bvh_walk": [_P] * 11 + [_I] * 4 + [_P],
+    "mrt_bvh_walk_list": [_P] * 7 + [_I, _P],
     "mrt_analytic": [_P] * 10 + [_I] * 6 + [_P],
     "mrt_pack_rowsum": [_P, _I, _P, _I, _I, _P, _P, _P],
     # CUDA-graph IF nodes (graph_cond.cu; ops/graphs.if_node): pred,

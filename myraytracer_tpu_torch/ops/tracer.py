@@ -67,7 +67,9 @@ nothing; a segment run eagerly while no ray is alive counts no live ray
 and no body, as the replay would. :func:`live_rays`,
 :func:`segments_run` and :func:`rays_run` read them per entry point
 (``render``, ``aa_refine``, ...), with a synchronise: after a call,
-never on its path.
+never on its path. The triangle walks of segments 1.. walk a list of
+their live rays alone and count it the same way (ops/traverse.py
+``walk.list``, ``listed_rays``).
 
 Device phase marks (utils/profiling.mark) split a segment's device time:
 ``segment`` at its start (inside an IF node's body for segments 1..,
@@ -379,6 +381,9 @@ def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
                ) -> trv.TriHit:
     """The one triangle query of a segment, by ``cfg.resolved_method()``,
     marked ``tri`` in segment 0 and ``tri.bounce`` in a later ``seg``.
+    The walk of a later segment walks a list of its active rays alone
+    (``traverse_bvh(listed=True)``): segment 0's closest query has every
+    ray live, so it launches over the batch as it is.
 
     "brute" has no any-hit mode and no mask: it answers occlusion as the
     reference's ``_closest_tris`` does, with a closest query below
@@ -397,7 +402,7 @@ def _tri_query(scene, pack: TracePack, o, d, active, cfg: TraceConfig,
     if method == "bvh":
         return trv.traverse_bvh(scene, o, d, t_max=t_max, any_hit=any_hit,
                                 active=active, tri_flat=pack.tri_flat,
-                                plain=cfg.plain)
+                                plain=cfg.plain, listed=seg > 0)
     hit = trv.intersect_tris_brute(scene, o, d, t_max=t_max,
                                    tri_flat=pack.tri_flat)
     if active is None:

@@ -14,8 +14,11 @@ solves its triangles in slot order with a strict <. -1 ends the walk.
 
 :func:`traverse_bvh` launches K7 (``csrc/bvh_walk.cu``) on CUDA tensors
 and runs :func:`traverse_bvh_plain`, the reference's lockstep walk, on
-CPU tensors. :func:`intersect_tris_brute` tests every triangle; it is
-the oracle of both, and was never a Pallas kernel, so it stays torch ops.
+CPU tensors. On the card a ``listed`` query (a bounce segment's,
+ops/tracer.py) first lists its live rays (:func:`walk_list`) and walks
+the list alone.
+:func:`intersect_tris_brute` tests every triangle; it is the oracle of
+both, and was never a Pallas kernel, so it stays torch ops.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from myraytracer_tpu_torch.kernels import _build
+from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops.intersect import INF, ray_aabb, ray_triangle
 
 
@@ -90,7 +94,9 @@ def traverse_bvh_plain(scene, o, d, t_max=None, any_hit: bool = False,
     the groups' largest step counts, and the node steps over 32 times
     that; ``warp_steps_compact`` and ``lanes_busy_compact``: the same
     with each block's active rays packed first (K7's any-hit launch,
-    :func:`compact_active`).
+    :func:`compact_active`); ``warp_steps_list`` and ``lanes_busy_list``:
+    the same over the active rays alone in call order (the list of a
+    ``listed`` query, one ray per lane). This hook runs on the CPU.
     """
     R, dev = o.shape[0], o.device
     if scene.n_tris == 0:
@@ -166,6 +172,8 @@ def traverse_bvh_plain(scene, o, d, t_max=None, any_hit: bool = False,
         stats["lanes_busy"], stats["warp_steps"] = _lanes_busy(steps)
         stats["lanes_busy_compact"], stats["warp_steps_compact"] = \
             _lanes_busy(packed)
+        stats["lanes_busy_list"], stats["warp_steps_list"] = \
+            _lanes_busy(steps[live])
     return TriHit(idx, torch.where(idx >= 0, t, torch.full_like(t, INF)))
 
 
@@ -186,28 +194,37 @@ def compact_active(active):
                          stable=True)
 
 
-def bvh_walk(o, d, t0, act, nodes, links, tri_flat, any_hit: bool):
+def bvh_walk(o, d, t0, act, nodes, links, tri_flat, any_hit: bool,
+             listed=None):
     """K7 on CUDA tensors -> (t [R] f32, idx [R] i32).
 
     o, d [R, 3] or [R, 4] f32 (xyz first); t0 [R] f32; act [R] i32;
     nodes [N, 8] f32; links [8N, 2] i32; tri_flat [T, 16] f32. The
     any-hit launch walks each block's active rays compacted as
-    :func:`compact_active` orders them. Raises ValueError for tensors the
-    kernel does not take.
+    :func:`compact_active` orders them. ``listed``: the (list, n_list, t,
+    idx) of :func:`walk_list` (``act`` is then None): the launch walks
+    the listed rays alone, ceil(n / warps) consecutive ones a warp over
+    the warps the card holds at once, and writes their results into that
+    t and idx. Raises ValueError for tensors the kernel does not take.
     """
     dev = o.device
     widths = {"o_f": o.shape[1], "d_f": o.shape[1], "nodes_f": 8,
               "links_i": 2, "tri_flat_f": 16}
+    rows = dict(act_i=act) if listed is None else dict(
+        list_i=listed[0], n_list_i=listed[1], t_f=listed[2],
+        idx_i=listed[3])
     _build.check_inputs("bvh_walk", dev, widths, o_f=o, d_f=d, t0_f=t0,
-                        act_i=act, nodes_f=nodes, links_i=links,
-                        tri_flat_f=tri_flat)
+                        nodes_f=nodes, links_i=links, tri_flat_f=tri_flat,
+                        **rows)
     R, ws, N = o.shape[0], o.shape[1], nodes.shape[0]
-    if ws not in (3, 4) or d.shape[0] != R or t0.shape != (R,) or \
-            act.shape != (R,):
+    per_ray = [act] if listed is None else [listed[0], *listed[2:]]
+    if ws not in (3, 4) or d.shape[0] != R or t0.shape != (R,) or any(
+            x.shape != (R,) for x in per_ray):
         raise ValueError(f"bvh_walk: rays must be [R, 3] or [R, 4] with t0 "
-                         f"and act [R], got o {tuple(o.shape)}, d "
-                         f"{tuple(d.shape)}, t0 {tuple(t0.shape)}, act "
-                         f"{tuple(act.shape)}")
+                         f"and act (or the list, t and idx) [R], got o "
+                         f"{tuple(o.shape)}, d {tuple(d.shape)}, t0 "
+                         f"{tuple(t0.shape)}, "
+                         f"{[tuple(x.shape) for x in per_ray]}")
     if links.shape[0] != 8 * N:
         raise ValueError(f"bvh_walk: links must be [8N, 2] = [{8 * N}, 2], "
                          f"got {tuple(links.shape)}")
@@ -215,43 +232,155 @@ def bvh_walk(o, d, t0, act, nodes, links, tri_flat, any_hit: bool):
                       ("tri_flat", tri_flat)):
         if tab.data_ptr() % 16:
             raise ValueError(f"bvh_walk: {name} must be 16-byte aligned")
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    idx = torch.empty(R, dtype=torch.int32, device=dev)
+    if listed is None:
+        t = torch.empty(R, dtype=torch.float32, device=dev)
+        idx = torch.empty(R, dtype=torch.int32, device=dev)
+        act_p, list_p, n_p = act.data_ptr(), None, None
+    else:
+        lst, n_list, t, idx = listed
+        act_p, list_p, n_p = None, lst.data_ptr(), n_list.data_ptr()
     _build.launch("mrt_bvh_walk",
                   "bvh_walk_anyhit" if any_hit else "bvh_walk_closest", dev,
-                  o.data_ptr(), d.data_ptr(), t0.data_ptr(), act.data_ptr(),
-                  nodes.data_ptr(), links.data_ptr(), tri_flat.data_ptr(),
-                  t.data_ptr(), idx.data_ptr(), R, ws, N, int(any_hit))
+                  o.data_ptr(), d.data_ptr(), t0.data_ptr(), act_p, list_p,
+                  n_p, nodes.data_ptr(), links.data_ptr(),
+                  tri_flat.data_ptr(), t.data_ptr(), idx.data_ptr(), R, ws, N,
+                  int(any_hit))
     return t, idx
 
 
+#: what the list launches' counters are called in their region
+#: (graphs.counter): int64 [2], the rays listed and the rays of the
+#: launches that listed them
+LISTED = "traverse.listed"
+
+#: each device's workspace of the list launches (:func:`list_workspace`)
+_LIST_WORK: dict = {}
+
+
+def list_workspace(device) -> torch.Tensor:
+    """The int32 [2] workspace of the list launches on ``device``: the
+    places in the list that a launch's blocks have taken and its blocks
+    done (``csrc/bvh_walk.cu`` ``walk_list_kernel``). Made and zeroed
+    once, by an eager call (never inside a capture, whose pool would
+    own it); each launch leaves it zero. The launches that share it must
+    not overlap: the port issues a device's list launches on one stream,
+    one after another, eagerly and in its captured graphs alike. A caller
+    that issues them on two streams orders the streams (an event between
+    them), as tests/test_torch_kernels_cuda.py shows."""
+    device = torch.device(device)
+    work = _LIST_WORK.get(device)
+    if work is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("walk_list: the list workspace is made by an "
+                               "eager call, before any capture")
+        work = _LIST_WORK[device] = torch.zeros(2, dtype=torch.int32,
+                                                device=device)
+    return work
+
+
+def walk_list(active, counts=None):
+    """K7's list of a listed query (``csrc/bvh_walk.cu``
+    ``walk_list_kernel``) on CUDA tensors -> (list [R] i32, n_list [1]
+    i32, t [R] f32, idx [R] i32).
+
+    ``active`` [R] bool. Each dead ray's miss (t INF, idx -1) is written
+    into t and idx; the live rays' ids fill the list's first n_list
+    places, in call order within each block of 1024 rays (the blocks in
+    the order they finish counting). The list and its length take one
+    int32 buffer of R + 1; the blocks take their places through the
+    device's :func:`list_workspace`. ``counts`` (int64 [2], or None)
+    gains the rays listed and R where it listed any. Its plain version
+    is :func:`walk_list_plain`.
+    """
+    dev = active.device
+    _build.check_inputs("walk_list", dev, active_b=active,
+                        **({} if counts is None else {"counts_l": counts}))
+    R = active.shape[0]
+    work = list_workspace(dev)
+    buf = torch.empty(R + 1, dtype=torch.int32, device=dev)
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    idx = torch.empty(R, dtype=torch.int32, device=dev)
+    _build.launch("mrt_bvh_walk_list", "bvh_walk_list", dev,
+                  active.data_ptr(), t.data_ptr(), idx.data_ptr(),
+                  buf.data_ptr(), buf[R:].data_ptr(),
+                  None if counts is None else counts.data_ptr(),
+                  work.data_ptr(), R)
+    return buf[:R], buf[R:], t, idx
+
+
+def walk_list_plain(active, counts=None):
+    """The plain version of :func:`walk_list` -> (ids [n] i64 of the live
+    rays in call order, t [R] f32 INF, idx [R] i32 -1): the dead rays'
+    misses, which the walk of the listed rays leaves alone. ``counts``
+    as there. The reference the tests hold the kernel against; the plain
+    route of :func:`traverse_bvh` walks the masked batch instead."""
+    ids = torch.nonzero(active)[:, 0]
+    R = active.shape[0]
+    if counts is not None and ids.numel():
+        counts += torch.tensor([ids.numel(), R], dtype=torch.int64,
+                               device=counts.device)
+    return (ids, torch.full((R,), INF, device=active.device),
+            torch.full((R,), -1, dtype=torch.int32, device=active.device))
+
+
+def listed_rays(entry: str):
+    """(rays listed, rays of the list launches) of the calls of the entry
+    point ``entry`` so far (``render``, ``aa_refine``, ...), from the
+    list launches' counters; (0, 0) where none counted. Their ratio is
+    the share of the bounce launches' static batch that K7 walks. It
+    synchronises, so it is never called on a call's path."""
+    held = graphs.counters(entry, LISTED)
+    if not held:
+        return 0, 0
+    total = sum(t.cpu() for t in held)
+    return int(total[0]), int(total[1])
+
+
 def traverse_bvh(scene, o, d, t_max=None, any_hit: bool = False, active=None,
-                 tri_flat=None, plain: bool = False) -> TriHit:
+                 tri_flat=None, plain: bool = False,
+                 listed: bool = False) -> TriHit:
     """Closest (or any) triangle hit per ray through the threaded BVH.
 
     The contract of :func:`traverse_bvh_plain`. CUDA tensors launch K7,
     CPU tensors run the plain version; ``plain=True`` runs the plain
     version on any device (for comparisons on the card). ``tri_flat`` is
     :func:`pack_tri_vertices` of the current vertices (built here when
-    None).
+    None). ``listed`` (with an ``active`` mask; ops/tracer.py sets it in
+    every segment after the first): K7 lists the active rays first
+    (:func:`walk_list`) and walks the list alone, with the same t and
+    idx to the bit; the plain version walks the masked batch. Each
+    listed query adds one to the host tally ``"walk.list"``
+    (``graphs.tally``) and its rays to the counters :data:`LISTED` of
+    the region that runs it, on either route.
     """
-    if plain or o.device.type == "cpu":
+    listed = listed and active is not None and scene.n_tris > 0
+    R, dev = o.shape[0], o.device
+    if listed:
+        graphs.tally("walk.list")
+        counts = graphs.counter(LISTED, (2,), dev)
+    if plain or dev.type == "cpu":
+        if listed and counts is not None:
+            # what walk_list adds, without a read on the host
+            n = active.sum(dtype=torch.int64)
+            counts += torch.stack((n, (n > 0) * R))
         return traverse_bvh_plain(scene, o, d, t_max, any_hit, active,
                                   tri_flat)
-    R, dev = o.shape[0], o.device
     if scene.n_tris == 0:
         return _miss(R, dev)
     if tri_flat is None:
         tri_flat = pack_tri_vertices(scene)
     t0 = (torch.full((R,), INF, device=dev) if t_max is None
           else t_max.to(torch.float32).contiguous())
-    act = (torch.ones(R, dtype=torch.int32, device=dev) if active is None
-           else active.to(torch.int32))
+    if listed:
+        act, lst = None, walk_list(active.contiguous(), counts)
+    else:
+        act = (torch.ones(R, dtype=torch.int32, device=dev) if active is None
+               else active.to(torch.int32)).contiguous()
+        lst = None
     nodes = scene.bvh_nodes_packed.detach().contiguous()
     t, idx = bvh_walk(o.detach().contiguous(), d.detach().contiguous(), t0,
-                      act.contiguous(), nodes,
-                      scene.bvh_links_packed.contiguous(),
-                      tri_flat.detach().contiguous(), any_hit)
+                      act, nodes, scene.bvh_links_packed.contiguous(),
+                      tri_flat.detach().contiguous(), any_hit, lst)
     return TriHit(idx, t)
 
 

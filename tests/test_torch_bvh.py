@@ -312,7 +312,8 @@ def test_walk_stats_count_lanes_busy():
     takes three steps (root, both leaves), a ray outside it one. Rays
     0-15 run inside, 16-39 outside; with rays 16-31 inactive, the call
     order's two warps hold 16 x 3 + 8 x 1 = 56 steps under warp maxima
-    3 + 1, and the 24 active rays packed into one warp 56 under 3."""
+    3 + 1, and the 24 active rays packed into one warp 56 under 3, by the
+    block's packing and by the list of the active rays alike."""
     from myraytracer_tpu_torch.models.material import Material
     from myraytracer_tpu_torch.models.mesh import FLAT, TriangleMesh
     from myraytracer_tpu_torch.models.scene import Scene
@@ -344,6 +345,9 @@ def test_walk_stats_count_lanes_busy():
     assert (stats["warp_steps"], stats["lanes_busy"]) == (4, 56 / (32 * 4))
     assert stats["warp_steps_compact"] == 3
     assert stats["lanes_busy_compact"] == 56 / (32 * 3)
+    # the list of the active rays (rays 0-15, 32-39) fills one warp too
+    assert stats["warp_steps_list"] == 3
+    assert stats["lanes_busy_list"] == 56 / (32 * 3)
 
 
 def test_compacted_any_hit_walk_equals_the_walk():

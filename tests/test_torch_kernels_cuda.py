@@ -745,6 +745,216 @@ def test_bvh_walk_wrapper_rejects_bad_inputs(cuda):
         trv.bvh_walk(o, d, t0, act, nodes.cpu(), links, tri, False)
 
 
+# --- K7's list walk: the bounce segments' queries (traverse_bvh listed) ---
+
+#: ptxas's registers of K7 (closest, any hit), which the list walk, a
+#: runtime branch of the same kernel, must leave as they were
+K7_REGISTERS = (48, 47)
+
+
+def _walk_kernels():
+    from myraytracer_tpu_torch.kernels import _build
+    _, log = _build.build()
+    return {k: v for k, v in _build.kernel_resources(log).items()
+            if "bvh_walk_kernel" in k or "walk_list_kernel" in k}
+
+
+def test_bvh_walk_registers_and_no_spills(cuda):
+    res = _walk_kernels()
+    for any_hit, want in enumerate(K7_REGISTERS):
+        (k,) = [k for k in res if f"bvh_walk_kernelILb{any_hit}E" in k]
+        assert res[k]["registers"] == want, (k, res[k])
+    for k, r in res.items():
+        assert r["spill_stores"] == r["spill_loads"] == 0, (k, r)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.004, 0.3, 1.0])
+def test_walk_list_kernel_matches_plain(cuda, density):
+    """The live ids (in call order within each block of 1024 rays, the
+    blocks in any order), their number, the dead rays' misses and the
+    counters (nothing where nothing is listed) as the plain version gives
+    them; twice in a row, so the workspace's place and ticket start
+    again from 0."""
+    R = 300_001
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    active = torch.rand(R, device=cuda, generator=gen) < density
+    ids, t_p, idx_p = trv.walk_list_plain(active)
+    n = ids.numel()
+    for _ in range(2):
+        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+        before = LAUNCHES["bvh_walk_list"]
+        lst, n_list, t, idx = trv.walk_list(active, counts)
+        assert LAUNCHES["bvh_walk_list"] == before + 1
+        assert int(n_list) == n
+        got = lst[:n].long()
+        assert torch.equal(torch.sort(got).values, ids)
+        blk = got // 1024
+        new_blk = blk[1:] != blk[:-1]
+        assert int(new_blk.sum()) == max(blk.unique().numel() - 1, 0)
+        assert bool(((got[1:] > got[:-1]) | new_blk).all())
+        dead = ~active
+        assert torch.equal(t[dead], t_p[dead])
+        assert torch.equal(idx[dead], idx_p[dead])
+        assert counts.tolist() == ([n, R] if n else [0, 0])
+        assert trv.list_workspace(cuda).tolist() == [0, 0]
+
+
+def test_walk_list_launches_on_two_streams_are_ordered(cuda):
+    """The list launches of a device share its workspace (the places
+    taken, the blocks done; traverse.list_workspace), so two launches on
+    two streams must not overlap: with the second stream waiting on an
+    event of the first, each lists its own live rays and the workspace is
+    left zero."""
+    R = 200_003
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    masks = [torch.rand(R, device=cuda, generator=gen) < p
+             for p in (0.3, 0.7)]
+    trv.walk_list(masks[0])                  # the workspace, made eagerly
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    done = torch.cuda.Event()
+    outs = []
+    for k, (st, mask) in enumerate(zip(streams, masks)):
+        st.wait_stream(torch.cuda.current_stream())
+        if k:
+            st.wait_event(done)
+        with torch.cuda.stream(st):
+            outs.append(trv.walk_list(mask))
+            if not k:
+                done.record(st)
+    torch.cuda.synchronize()
+    for mask, (lst, n_list, _, _) in zip(masks, outs):
+        ids = trv.walk_list_plain(mask)[0]
+        assert int(n_list) == ids.numel()
+        got = torch.sort(lst[:ids.numel()].long()).values
+        assert torch.equal(got, ids)
+    assert trv.list_workspace(cuda).tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_walk_list_matches_the_launch_over_every_ray(cuda, any_hit):
+    """The list launch equals K7 over the whole batch and the plain walk
+    to the bit, on masks from none to every ray live, with more live rays
+    than the card's resident lanes (a lane then walks several)."""
+    data, rng = _random_scene(6, 900, cuda)
+    R = 400_003
+    o, d = _rays(rng, R, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    t_max = (torch.rand(R, device=cuda, generator=gen) * 30.0
+             if any_hit else None)
+    walk = "bvh_walk_anyhit" if any_hit else "bvh_walk_closest"
+    for density in (0.0, 0.004, 0.3, 1.0):
+        active = torch.rand(R, device=cuda, generator=gen) < density
+        kw = dict(t_max=t_max, any_hit=any_hit, active=active)
+        before = dict(LAUNCHES)
+        got = trv.traverse_bvh(data, o, d, listed=True, **kw)
+        assert LAUNCHES["bvh_walk_list"] == before["bvh_walk_list"] + 1
+        assert LAUNCHES[walk] == before[walk] + 1
+        want = trv.traverse_bvh(data, o, d, **kw)
+        assert torch.equal(got.idx, want.idx), density
+        assert torch.equal(got.t, want.t), density
+        if density == 0.3:
+            plain = trv.traverse_bvh_plain(data, o, d, **kw)
+            assert torch.equal(got.idx, plain.idx)
+            assert torch.equal(got.t, plain.t)
+            assert bool((got.idx >= 0).any())
+
+
+def test_bvh_walk_list_in_a_captured_graph_under_an_if_node(cuda):
+    """A listed query in an IF node's body: each replay that runs the
+    body equals the eager query to the bit and adds its rays to the
+    region's counters; a skipped body leaves the buffers and counters
+    alone; the tally counts one listed query a replay."""
+    graphs.clear()
+    data, rng = _random_scene(8, 900, cuda)
+    R = 50_000
+    o, d = _rays(rng, R, cuda)
+    active = torch.rand(R, device=cuda) < 0.3
+    gate = torch.ones(1, device=cuda)
+    tri = trv.pack_tri_vertices(data).contiguous()
+    t_out = torch.zeros(R, device=cuda)
+    i_out = torch.zeros(R, dtype=torch.int32, device=cuda)
+    held = [o, d, active, gate, t_out, i_out]
+
+    def region():
+        pred = (gate > 0).any()
+
+        def body():
+            hit = trv.traverse_bvh(data, o, d, active=active, tri_flat=tri,
+                                   listed=True)
+            t_out.copy_(hit.t)
+            i_out.copy_(hit.idx)
+        if graphs.capturing(cuda):
+            graphs.if_node(pred, body, "the listed query")
+        elif bool(pred):                    # the eager warm-up
+            body()
+        return t_out * 1.0
+
+    want = trv.traverse_bvh(data, o, d, active=active, tri_flat=tri)
+    n = int(active.sum())
+    for _ in range(3):                      # warm-up, capture, replay
+        got = graphs.run("listed", region, cuda, held=held)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.t) and torch.equal(i_out, want.idx)
+    assert graphs.tallies("listed") == {"walk.list": 1}
+    assert graphs.count_bodies() == (1, 0)
+    assert trv.listed_rays("listed") == (3 * n, 3 * R)
+    gate.zero_()
+    t_out.fill_(-1.0)
+    got = graphs.run("listed", region, cuda, held=held)
+    assert bool((got == -1.0).all()) and graphs.count_bodies() == (0, 1)
+    assert trv.listed_rays("listed") == (3 * n, 3 * R)
+    gate.fill_(1.0)
+    active[: R // 2] = False
+    want = trv.traverse_bvh(data, o, d, active=active, tri_flat=tri)
+    got = graphs.run("listed", region, cuda, held=held)
+    assert torch.equal(got, want.t) and torch.equal(i_out, want.idx)
+    assert trv.listed_rays("listed") == (3 * n + int(active.sum()), 4 * R)
+    graphs.clear()
+
+
+def test_rings_bounce_walks_are_listed_graphed_and_eager(cuda):
+    """The rings (PHONG mirror tori, 4 segments) at 140 x 100 through
+    render_aa: graphed equals eager to the bit; each replay tallies 12
+    listed queries (segments 1 to 3, closest and shadow, both passes) and
+    counts the rays the plain versions list; office lists none."""
+    from myraytracer_tpu_torch.scenes.golden import scene_09_rings
+
+    s = scene_09_rings(scale=0.2)
+    data = s.build(device=cuda)
+    cfg = tr.TraceConfig(tri_method="auto")
+    fn = lambda c: render_aa(data, s.camera, c, budget_frac=0.05)  # noqa: E731
+    graphs.clear()
+    with graphs.disable_graphs():
+        plain = fn(cfg._replace(plain=True))
+    want_rays = [trv.listed_rays(e) for e in ("render", "aa_refine")]
+    graphs.clear()
+    with graphs.disable_graphs():
+        eager = fn(cfg)
+    assert [trv.listed_rays(e) for e in ("render", "aa_refine")] == want_rays
+    assert 0 < want_rays[0][0] < want_rays[0][1]
+    graphs.clear()
+    before = graphs.TALLIES["walk.list"]
+    for _ in range(3):
+        got = fn(cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)
+    assert graphs.tallies("render")["walk.list"] == 6
+    assert graphs.tallies("aa_refine")["walk.list"] == 6
+    assert graphs.TALLIES["walk.list"] - before == 3 * 12
+    assert [trv.listed_rays(e) for e in ("render", "aa_refine")] == [
+        (3 * a, 3 * b) for a, b in want_rays]
+    diff = (eager - plain).abs().amax(dim=-1)
+    assert float((diff <= 1e-4).float().mean()) >= 0.995
+    o = scene_08_office(tess=3, resolution=(160, 90))
+    graphs.clear()
+    before = graphs.TALLIES["walk.list"]
+    with graphs.disable_graphs():
+        render_aa(o.build(device=cuda), o.camera, cfg, budget_frac=0.05)
+    assert graphs.TALLIES["walk.list"] == before
+    graphs.clear()
+
+
 # --- K8, the dense analytic tests (csrc/analytic.cu) -----------------------
 
 def _analytic_scene(dev, spheres=(), planes=(), cylinders=()):
