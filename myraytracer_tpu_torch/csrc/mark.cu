@@ -9,7 +9,7 @@
 #include <utility>
 
 // the number of phases, len(utils/profiling.PHASES)
-#define MRT_N_PHASES 17
+#define MRT_N_PHASES 18
 
 template <int P>
 __global__ void mrt_mark() {}

@@ -148,9 +148,8 @@ __device__ __forceinline__ void seg_geometry(const float* o, const float* d,
   g.alpha = g.Da * g.inv_s;
   g.beta = g.Db * g.inv_s;
   g.gamma = 1.0f - g.alpha - g.beta;
-  const bool inside = g.alpha >= 0.0f && g.alpha <= 1.0f && g.beta >= 0.0f &&
-                      g.beta <= 1.0f && g.gamma >= 0.0f && g.gamma <= 1.0f;
-  g.valid = g.ok_s && t_raw > MRT_EPS_HIT && inside;
+  // a replay keeps its recorded hit (intersect.keeps_recorded_hit)
+  g.valid = g.ok_s && t_raw > MRT_EPS_HIT;
   const float t_inf = g.valid ? t_raw : MRT_INF;
   g.t_use = is_t ? t_inf : 0.0f;
 

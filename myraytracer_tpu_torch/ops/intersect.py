@@ -111,14 +111,34 @@ def ray_aabb(o, inv_d, bbmin, bbmax):
     return (tmax >= tmin) & (tmax > EPS_HIT), tmin
 
 
-def ray_triangle(o, d, p0, p1, p2):
+def keeps_recorded_hit(ok, t):
+    """Where a replay keeps a recorded triangle hit: wherever its
+    re-solve is not degenerate (``ok``) and ahead of the ray
+    (``t > EPS_HIT``), with no inside test. The replay re-solves a hit
+    that the topology pass recorded, from a ray whose last bits can
+    differ from the traced one's, and a hit grazing an edge can then
+    fall just outside the triangle; the solve of the triangle's plane
+    is still the hit, where a miss would send the point to INF (and a
+    reflected ray on to NaN). The rule of every triangle replay: the
+    autograd one (``ray_triangle(recorded=True)`` in
+    ``shade.resolve_hit``) and K5/K6 (``shade_grad._fwd_core`` and
+    ``seg_geometry`` in csrc/shade_grad.cu). The sphere and cylinder
+    re-solves keep their miss: off a grazing tangent their quadratic
+    has no root to keep. The reference keeps the inside test, so the
+    port departs from it on such rays, by as much as the ray moved."""
+    return ok & (t > EPS_HIT)
+
+
+def ray_triangle(o, d, p0, p1, p2, recorded: bool = False):
     """Ray-triangle via Cramer's rule: returns (t, alpha, beta).
 
     Solves ``o + t d = alpha p0 + beta p1 + gamma p2`` with
     ``gamma = 1 - alpha - beta`` (columns [p0-p2, p1-p2, -d | o-p2]).
     Miss -> t = INF. alpha and beta are differentiable with respect to
     the vertices and the ray; the double ``where`` keeps the gradient of
-    a degenerate triangle finite.
+    a degenerate triangle finite. ``recorded``: the ray is known to hit
+    this triangle (a replay of a recorded topology), and t holds by
+    :func:`keeps_recorded_hit`.
     """
     c1 = p0 - p2
     c2 = p1 - p2
@@ -134,5 +154,6 @@ def ray_triangle(o, d, p0, p1, p2):
     gamma = 1.0 - alpha - beta
     inside = ((alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0)
               & (gamma >= 0.0) & (gamma <= 1.0))
-    valid = ok & (t > EPS_HIT) & inside
+    valid = (keeps_recorded_hit(ok, t) if recorded
+             else ok & (t > EPS_HIT) & inside)
     return torch.where(valid, t, torch.full_like(t, INF)), alpha, beta

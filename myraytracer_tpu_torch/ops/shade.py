@@ -183,12 +183,13 @@ def resolve_hit(scene, o, d, kind, idx, geom: ShadeGeom,
     ray and ``kind`` selects. Spheres, planes and cylinders re-solve t
     from the scene's own tensors (the cylinder's normal flipped toward
     the viewer); triangles take one row gather from ``tri_pack``, the
-    Cramer re-solve, the flat normal from the vertices (PHONG meshes
-    interpolate the corner normals, unnormalised). Every point is
-    re-projected onto its surface in fp32. The material row comes from
-    ``tri_pack`` columns 32:48 in triangle-only scenes and from
-    ``mat16[mat_id]`` otherwise; a textured triangle's diffuse is the
-    texel of ``texture.sample_nearest`` or ``sample_bilinear``
+    Cramer re-solve (which keeps the recorded hit,
+    ``intersect.keeps_recorded_hit``), the flat normal from the vertices
+    (PHONG meshes interpolate the corner normals, unnormalised). Every
+    point is re-projected onto its surface in fp32. The material row
+    comes from ``tri_pack`` columns 32:48 in triangle-only scenes and
+    from ``mat16[mat_id]`` otherwise; a textured triangle's diffuse is
+    the texel of ``texture.sample_nearest`` or ``sample_bilinear``
     (``texture_filter``). ``need_colors=False`` skips the colours:
     diffuse, ambient, specular and shininess come back as zeros. Rays of
     no kind get t 0, a zero normal and mirror 0; every consumer gates on
@@ -247,7 +248,7 @@ def resolve_hit(scene, o, d, kind, idx, geom: ShadeGeom,
         ti = torch.clamp(safe, max=scene.n_tris - 1)
         rows48 = geom.tri_pack[ti]                   # [R, 32 or 48]
         p0, p1, p2 = rows48[:, 0:3], rows48[:, 3:6], rows48[:, 6:9]
-        t_t, alpha, beta = isx.ray_triangle(o, d, p0, p1, p2)
+        t_t, alpha, beta = isx.ray_triangle(o, d, p0, p1, p2, recorded=True)
         gamma = 1.0 - alpha - beta
         n_flat = vm.normalize(vm.cross(p1 - p0, p2 - p0))
         n0, n1, n2 = rows48[:, 16:19], rows48[:, 19:22], rows48[:, 22:25]

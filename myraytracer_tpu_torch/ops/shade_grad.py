@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from myraytracer_tpu_torch.kernels import _build
-from myraytracer_tpu_torch.ops.intersect import EPS_DET, EPS_HIT, INF
+from myraytracer_tpu_torch.ops.intersect import (EPS_DET, INF,
+                                                  keeps_recorded_hit)
 from myraytracer_tpu_torch.ops.shade import EPS_OFFSET
 from myraytracer_tpu_torch.utils.vecmath import EPS_NORMALIZE
 
@@ -91,9 +92,7 @@ def _fwd_core(o, d, w, cols, lp, lc, amb, bg, is_t, h, miss, lit, L):
     alpha = Da * inv_s
     beta = Db * inv_s
     gamma = 1.0 - alpha - beta
-    inside = ((alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0)
-              & (beta <= 1.0) & (gamma >= 0.0) & (gamma <= 1.0))
-    valid = ok_s & (t_raw > EPS_HIT) & inside
+    valid = keeps_recorded_hit(ok_s, t_raw)
     t_inf = torch.where(valid, t_raw, INF)
     t_use = torch.where(is_t, t_inf, 0.0)
 

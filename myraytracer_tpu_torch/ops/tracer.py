@@ -76,8 +76,9 @@ Device phase marks (utils/profiling.mark) split a segment's device time:
 so a skipped segment leaves no mark), ``analytic`` before the dense
 analytic tests, ``tri`` before each triangle query of segment 0 and
 ``tri.bounce`` before each of a later segment (the reflected rays' walks
-apart from the primary rays'), ``shade`` before K3, K4, K5, K10 or the
-autograd replay.
+apart from the primary rays'), ``shade`` before K3, K4, K5 or K10, and
+``shade.autograd`` before the autograd replay's forward (its row gathers
+and lighting apart from the topology's K3/K4).
 """
 
 from __future__ import annotations
@@ -664,10 +665,10 @@ def lighting_from_mask(scene, hit: shade.Hit, view: torch.Tensor,
 def _replay_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
                     cfg: TraceConfig) -> Bounce:
     """One segment of the autograd replay (the reference's default), with
-    ``cfg.texture_filter``'s texel fetch."""
+    ``cfg.texture_filter``'s texel fetch, marked ``shade.autograd``."""
     mark("segment", carry.o.device)
     kind, idx, h, miss, is_shadow = rec
-    mark("shade", carry.o.device)
+    mark("shade.autograd", carry.o.device)
     hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx, geom,
                             cfg.texture_filter)
     local = lighting_from_mask(scene, hit, -carry.d, is_shadow)

@@ -52,23 +52,25 @@ from myraytracer_tpu_torch.kernels import _build
 #: glue); ``analytic``: the dense sphere/plane/cylinder tests, closest
 #: and occlusion; ``tri``: a triangle query (K2 + K1/K1', K7 or the
 #: brute oracle) of a trace's first segment, closest hit and shadows;
-#: ``shade``: K3, K4, K5 or the autograd replay;
+#: ``shade``: K3, K4, K5 or K10;
 #: ``aa.select``, ``aa.apply``: the AA refine's pixel selection and
 #: subrays, and its average into the image; ``refit``, ``topology``,
 #: ``replay``, ``backward``: the training step's stages
 #: (ops/render._loss_grad_tiled); ``fit.*``: the fit step's
 #: (inverse.InverseRenderer._step_body); ``end``: a captured region's end;
 #: ``tri.bounce``: a triangle query of a later segment (reflected rays and
-#: their shadows). A new phase goes at the end, so that every mark keeps
-#: its index
+#: their shadows); ``shade.autograd``: the autograd replay's forward
+#: (``shade.resolve_hit``'s row gathers and the lighting). A new phase goes
+#: at the end, so that every mark keeps its index
 PHASES = ("rays", "segment", "analytic", "tri", "shade", "aa.select",
           "aa.apply", "refit", "topology", "replay", "backward",
           "fit.topology", "fit.replay", "fit.backward", "fit.adam", "end",
-          "tri.bounce")
+          "tri.bounce", "shade.autograd")
 
 #: the phases inside a trace: each subdivides the stage that the last
 #: mark of another phase opened
-TRACE_PHASES = ("segment", "analytic", "tri", "shade", "tri.bounce")
+TRACE_PHASES = ("segment", "analytic", "tri", "shade", "tri.bounce",
+                "shade.autograd")
 
 _PHASE_INDEX = {p: i for i, p in enumerate(PHASES)}
 

@@ -33,10 +33,12 @@ from myraytracer_tpu.ops.render import (
 from myraytracer_tpu.parallel.shard_render import (
     split_params as r_split_params)
 
+from myraytracer_tpu_torch.ops import intersect as isx
 from myraytracer_tpu_torch.ops import refit
 from myraytracer_tpu_torch.ops import render as prender
 from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import shade_grad as sg
+from myraytracer_tpu_torch.ops.shade import EPS_OFFSET
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.parallel.shard_render import (merge_params,
                                                          split_params)
@@ -240,12 +242,16 @@ def test_segment_bwd_plain_g_pack_matches_reference_scatter(name, n_lights):
 
 
 def test_segment_bwd_stays_finite_when_the_resolve_fails():
-    """A recorded triangle hit whose det3 re-solve fails (a grazing edge
-    where the scan's solve form says inside) puts the point at t = INF.
-    The reference's hand VJP forms 2 * lv there, which overflows, and
-    inf * 0 turns the light-position cotangent into NaN (one such ray in
-    office 480x270 makes vertex_pos and light_pos grads NaN). The port
-    forms lv * (2 g): finite, and equal to autograd of the forward."""
+    """A recorded triangle hit whose det3 re-solve falls outside the
+    triangle (a grazing edge where the scan's solve form says inside, or
+    a replayed ray whose last bits differ from the traced one's) keeps
+    the hit: t from the solve of the triangle's plane. The reference
+    puts the point at t = INF there; its hand VJP forms 2 * lv, which
+    overflows, and inf * 0 turns the light-position cotangent into NaN
+    (one such ray in office 480x270 made vertex_pos and light_pos grads
+    NaN; one in the o_09 rings' fit at 700x500 sent a reflected ray to
+    INF and made the loss NaN). The port's forward is finite, the point
+    on the triangle's plane, and its backward equals autograd of it."""
     tri = np.zeros((1, 48), np.float32)
     tri[0, 0:9] = [0, 0, 0, 1, 0, 0, 0, 1, 0]           # z = 0 plane
     tri[0, 16:25] = [0, 0, 1] * 3
@@ -260,10 +266,13 @@ def test_segment_bwd_stays_finite_when_the_resolve_fails():
             torch.ones((1, 1)))
     cots = (torch.tensor([[1.0, -0.5, 0.25]]), torch.zeros(1, 3),
             torch.tensor([[0.3, 0.1, -0.2]]), torch.tensor([0.7]))
-    ref_out = rsg.segment_ref(*_ref_args(args))
-    got_out = sg.segment_plain(*args)
-    for a, b in zip(got_out, ref_out):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    add, o2, d2, w2 = sg.segment_plain(*args)
+    assert all(bool(torch.isfinite(x).all()) for x in (add, o2, d2, w2))
+    # the plane z = 0 at t = 1 / 0.6, the bounce off its normal
+    refl = torch.tensor([[0.8, 0.0, 0.6]])
+    torch.testing.assert_close(d2, refl)
+    torch.testing.assert_close(
+        o2, torch.tensor([[2.0 + 0.8 / 0.6, 2.0, 0.0]]) + EPS_OFFSET * refl)
     ref_g = rsg.segment_bwd_ref(*_ref_args(args),
                                 *(jnp.asarray(c.numpy()) for c in cots))
     assert not np.isfinite(np.asarray(ref_g[4])).all()  # the reference's NaN
@@ -276,6 +285,80 @@ def test_segment_bwd_stays_finite_when_the_resolve_fails():
     for nm, a, b in zip(("o", "d", "light_pos"), (got[0], got[1], got[4]),
                         ad):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=nm)
+
+
+#: a point just across each edge of the triangle (0,0,0), (1,0,0), (0,1,0)
+#: of the z = 0 plane, at (beta, gamma): outside, then inside
+_EDGE = 2.0 ** -20
+EDGE_POINTS = {"alpha": ((0.3, 0.7 + _EDGE), (0.3, 0.7 - _EDGE)),
+               "beta": ((-_EDGE, 0.4), (_EDGE, 0.4)),
+               "gamma": ((0.4, -_EDGE), (0.4, _EDGE))}
+
+
+def _edge_args(point):
+    """One PHONG mirror triangle and a ray that meets its plane at
+    ``point`` (x, y) after t = 1.25."""
+    tri = np.zeros((1, 48), np.float32)
+    tri[0, 0:9] = [0, 0, 0, 1, 0, 0, 0, 1, 0]
+    tri[0, 16:25] = [0, 0, 1, 0.2, 0, 1, 0, 0.3, 1]     # corner normals
+    tri[0, 25] = 1.0                                    # PHONG
+    tri[0, 32:43] = [0.5, 0.4, 0.3, 0.1, 0.1, 0.1, 0.3, 0.3, 0.3, 20, 0.4]
+    d = np.float32([[0.6, 0.0, -0.8]])
+    o = np.float32([[point[0], point[1], 0.0]]) - np.float32(1.25) * d
+    return (torch.from_numpy(o), torch.from_numpy(d), torch.ones(1),
+            torch.from_numpy(tri), torch.zeros(1, dtype=torch.int32),
+            torch.tensor([[1.0, 2.0, 3.0]]), torch.tensor([[0.8, 0.8, 0.8]]),
+            torch.tensor([0.2, 0.2, 0.2]), torch.tensor([0.0, 0.1, 0.2]),
+            torch.tensor([True]), torch.tensor([True]), torch.tensor([False]),
+            torch.ones((1, 1)))
+
+
+@pytest.mark.parametrize("edge", sorted(EDGE_POINTS))
+def test_recorded_hit_just_outside_an_edge_matches_the_reference_inside(edge):
+    """A replayed ray that falls 2**-20 outside an edge of its recorded
+    triangle (intersect.keeps_recorded_hit) shades as the reference
+    shades the ray 2**-20 inside it, where the reference's solve is
+    valid: forward within 1e-5 and backward within COT_REL * max|a|.
+    Inside, the port equals the reference as everywhere else."""
+    out_pt, in_pt = EDGE_POINTS[edge]
+    outside, inside = _edge_args(out_pt), _edge_args(in_pt)
+    ref_in = rsg.segment_ref(*_ref_args(inside))
+    miss_o2 = np.asarray(rsg.segment_ref(*_ref_args(outside))[1])
+    assert np.abs(miss_o2).max() > 1e37                 # the reference's miss
+    cots = (torch.tensor([[1.0, -0.5, 0.25]]), torch.tensor([[0.2, 0, 0.1]]),
+            torch.tensor([[0.3, 0.1, -0.2]]), torch.tensor([0.7]))
+    ref_g = rsg.segment_bwd_ref(*_ref_args(inside),
+                                *(jnp.asarray(c.numpy()) for c in cots))
+    names = ("o", "d", "w", "rows", "light_pos", "light_color", "ambience",
+             "background")
+    for args in (outside, inside):
+        got = sg.segment_plain(*args)
+        for nm, a, b in zip(("add", "o2", "d2", "w2"), got, ref_in):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=1e-5, err_msg=nm)
+        got_g = sg.segment_bwd_rows_plain(*args, *cots)
+        for nm, a, b in zip(names, got_g, ref_g):
+            b = np.asarray(b)
+            if nm == "rows":
+                b = b[:, list(sg._GRAD_COLS)]
+            _scaled_close(a.numpy(), b, COT_REL, f"{edge} {nm}")
+
+
+def test_recorded_hit_behind_the_ray_stays_a_miss():
+    """keeps_recorded_hit drops the inside test alone: a recorded
+    triangle behind the ray (t <= EPS_HIT) or parallel to it is a miss,
+    as in the reference."""
+    p0, p1, p2 = (torch.tensor([[0.0, 0, 0]]), torch.tensor([[1.0, 0, 0]]),
+                  torch.tensor([[0.0, 1, 0]]))
+    o = torch.tensor([[0.2, 0.2, 1.0], [0.2, 0.2, 1.0], [0.2, 0.2, 1.0],
+                      [2.0, 2.0, 1.0]])
+    d = torch.tensor([[0.0, 0, 1], [1.0, 0, 0], [0.0, 0, -1], [0.8, 0, -0.6]])
+    t, _, _ = isx.ray_triangle(o, d, p0, p1, p2, recorded=True)
+    t_scan, _, _ = isx.ray_triangle(o, d, p0, p1, p2)
+    assert torch.equal(t[:2], torch.full((2,), isx.INF))
+    assert t[2] == pytest.approx(1.0)
+    assert torch.equal(t_scan[:3], t[:3])
+    assert t[3] == pytest.approx(1 / 0.6) and t_scan[3] == t[0]
 
 
 # --- topology, replay and the training step -------------------------------

@@ -2061,3 +2061,65 @@ def test_graphed_office_fit_step_takes_the_row_sum(cuda):
         np.testing.assert_allclose(run[0], want[0], rtol=1e-5)
         for k in want[1]:
             _close_scaled(run[1][k], want[1][k], k, rel=5e-4)
+
+
+# --- the autograd replay on a mixed scene (o_07) ---------------------------
+
+def test_graphed_toon_fit_step_equals_eager(cuda):
+    """o_07 at a quarter of its size (150 x 75: 19,680 PHONG triangles over a
+    mirror plane, two lights) through ``fit_pixels`` on the autograd
+    route, as the ``toon-600x300.fit`` cell runs it: four steps of one
+    renderer (a warm-up, a capture and its replay, two replays) against
+    four under ``disable_graphs()``. The capture holds the 9 IF nodes of
+    segments 1 to 3 (the topology's, the replay's forward and backward);
+    a replay runs segment 1's three bodies (the floor's reflections) and
+    skips the six of segments 2 and 3 (the heads are no mirrors); the
+    graph counts 4 autograd segments and the topology's 6 listed bounce
+    walks a step, and its backward runs the row gathers'
+    ``indexing_backward_kernel``. The losses, each step's
+    gradient (as Adam's ``exp_avg`` holds it) and the fitted leaves equal
+    the eager run's to the bit: the gathers' backward sums in a fixed
+    order, and both runs launch the same kernels."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+    from myraytracer_tpu_torch.scenes.golden import scene_07_toon_faces
+
+    graphs.clear()
+    sc = scene_07_toon_faces(scale=0.25)
+    data, cam = sc.build(device=cuda), sc.camera
+    cfg = tr.TraceConfig(tri_method="auto", texture_filter="bilinear")
+    assert cfg.replay_route(data) == "autograd"
+    assert data.n_tris == 19680 and data.n_lights == 2
+    assert data.n_segments == 4
+    tgt = (0.9 * render(data, cam, cfg) + 0.02).reshape(-1, 3)
+    xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+
+    def fn():
+        inv = InverseRenderer(data, ("mat_diffuse", "light_color"),
+                              optimizer=adam(0.05), camera=cam, cfg=cfg)
+        losses, moments = [], []
+        for _ in range(4):
+            losses += inv.fit_pixels(xs, ys, tgt, steps=1).losses
+            moments.append({k: inv.optimizer.state[p]["exp_avg"].clone()
+                            for k, p in inv.params.items()})
+        return losses, moments, {k: v.detach().clone()
+                                 for k, v in inv.params.items()}
+
+    want, _ = _eager(fn)
+    nodes = graphs.COUNTS["if_nodes"]
+    got = fn()                          # a warm-up, a capture, replays
+    assert graphs.COUNTS["if_nodes"] - nodes == 9
+    assert graphs.count_bodies() == (3, 6)
+    assert graphs.tallies("fit_step") == {"replay.autograd": 4,
+                                          "walk.list": 6}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    assert any("indexing_backward" in e.name for e in prof.events())
+    assert got[0] == want[0], (got[0], want[0])
+    for s, (a, b) in enumerate(zip(got[1], want[1])):
+        for k in b:
+            assert torch.equal(a[k], b[k]), (s, k, float(
+                (a[k] - b[k]).abs().max()), float(b[k].abs().max()))
+    for k in want[2]:
+        assert torch.equal(got[2][k], want[2][k]), k

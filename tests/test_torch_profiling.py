@@ -11,7 +11,8 @@ earlier phase's index, and every call site names one of its phases; no
 mark is made while a backward runs; and the marks each entry point
 makes, in order, on office and o_04 (an office frame makes 13, a fit
 step 11, each graph adding ``end``), and on the o_09 rings, whose later
-segments mark their triangle queries ``tri.bounce``.
+segments mark their triangle queries ``tri.bounce``. The autograd
+replay's ``shade.autograd``: tests/test_torch_toon_fit.py.
 """
 
 import ast
@@ -292,13 +293,14 @@ EARLIER_PHASES = ("rays", "segment", "analytic", "tri", "shade", "aa.select",
 def test_phase_table_keeps_every_earlier_index():
     n = len(EARLIER_PHASES)
     assert profiling.PHASES[:n] == EARLIER_PHASES
-    assert profiling.PHASES[n:] == ("tri.bounce",)
-    assert "tri.bounce" in profiling.TRACE_PHASES
+    assert profiling.PHASES[n:] == ("tri.bounce", "shade.autograd")
+    assert {"tri.bounce", "shade.autograd"} <= set(profiling.TRACE_PHASES)
 
 
 @pytest.mark.parametrize("name, phase", [
     ("void mrt_mark<3>()", "tri"), ("mrt_mark<15>", "end"),
     ("void mrt_mark<16>()", "tri.bounce"),
+    ("void mrt_mark<17>()", "shade.autograd"),
     ("void mrt_mark<(int)0>()", "rays"),
     ("void (anonymous namespace)::bvh_walk_kernel<false>(float const*)",
      None), ("mrt.graphs.launch render", None)])

@@ -14,7 +14,8 @@ device time per kernel, largest first. The phases are the program's
 device marks (utils/profiling.mark): each stage of the entry point
 (``rays``, ``aa.select``, ``aa.apply``, the training step's ``refit``,
 ``topology``, ``replay``, ``backward``) and, inside it, the trace's
-phases (``segment``, ``analytic``, ``tri``, ``shade``, ``tri.bounce``);
+phases (``segment``, ``analytic``, ``tri``, ``shade``, ``tri.bounce``,
+``shade.autograd``);
 they split a graph replay as they split an eager run. The entry points replay CUDA
 graphs (ops/graphs.py) by default; ``--eager`` runs them under
 ``disable_graphs()``, the launches one by one. By default the run is the
