@@ -188,9 +188,10 @@ scan's kernels were not.
      replay must skip a body. A training step holds three IF nodes per
      segment after the first (the topology's, trace_shade's forward and
      its backward): o_04's step must capture 6 and skip 3 (its skipped
-     sites printed), o_03's capture 60 (timed in one pair: a step is
-     about 8.4 s; its gradients' non-finite entries, behind re-solves
-     that fail on a mirror, must be the same graphed as eager); o_04's
+     sites printed), o_03's capture 60 (its replay K5/K6 beside
+     K10/K11, the "fused_mixed" route; its gradients' non-finite
+     entries, behind re-solves that fail on a mirror, must be the same
+     graphed as eager); o_04's
      step's max_memory_reserved eager and graphed.
 
  24. the differentiable forward: render(clamp=False) under autograd,
@@ -2580,9 +2581,6 @@ def inverse_demo():
 #: golden, in turns; steps of each fit compared; profiled calls per
 #: device-busy reading
 GRAPH_PAIRS, GOLDEN_PAIRS, GRAPH_FIT_STEPS, BUSY_REPS = 10, 5, 5, 3
-#: o_03's training step takes about 8.4 s of device time (its row
-#: gathers' backward), so it is timed in one pair
-O3_STEP_PAIRS = 1
 #: phase 23's bars, graphed against eager: the loss, and the fit's losses
 #: (Adam steps on gradients summed by K6's atomics in a run-dependent
 #: order); images must be equal bit for bit
@@ -2968,8 +2966,7 @@ def graphed_paths(dev: str, tess: int = 10, full=(1920, 1080)) -> None:
         goldens[key] = graphed_vs_eager(
             what, fns[key], same_loss_grads(f"{name} training step",
                                             nonfinite=not skipped),
-            True, GOLDEN_PAIRS if skipped else O3_STEP_PAIRS,
-            skips=bool(skipped))
+            True, GOLDEN_PAIRS, skips=bool(skipped))
         nodes, r = 3 * (gdata.n_segments - 1), goldens[key]
         check(r["if_nodes"] == nodes == r["bodies_run"] + r["bodies_skipped"]
               and r["bodies_skipped"] == skipped,

@@ -36,8 +36,10 @@ records the call, and for the bilinear texel fetch on a textured scene
 the scene's primitive kinds, textures and lights: the fused K5/K6
 segment (ops/shade_grad.py) on triangles alone, exactly where the
 reference's ``resolved_fused_shade_grad`` would; the fused K10/K11
-segment (ops/shade_grad_ana.py) on spheres and planes alone; else the
-autograd replay of ``shade.resolve_hit`` + :func:`lighting_from_mask`.
+segment (ops/shade_grad_ana.py) on spheres and planes alone; both side
+by side on triangles beside spheres or planes, K5/K6 on the triangle
+hits and K10/K11 on the others; else (cylinders, textures, no light)
+the autograd replay of ``shade.resolve_hit`` + :func:`lighting_from_mask`.
 A choice by scene content, not a fallback: each fused segment covers its
 kinds whole and computes what the autograd replay computes.
 
@@ -95,6 +97,7 @@ from myraytracer_tpu_torch.ops import cuda_cluster as cc
 from myraytracer_tpu_torch.ops import cuda_shade as cs
 from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import intersect as isx
+from myraytracer_tpu_torch.ops import row_sum
 from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import shade_grad as sg
 from myraytracer_tpu_torch.ops import shade_grad_ana as sga
@@ -168,22 +171,20 @@ class TraceConfig(NamedTuple):
     def replay_route(self, scene) -> str:
         """The route of :func:`trace_shade` on ``scene`` (a key of
         :data:`ROUTES`), by its primitive kinds, textures and lights;
-        each segment it runs adds one to the host tally
-        ``"replay.<route>"`` (``graphs.tally``). With
-        ``fused_shade_grad``, a light and no texture: ``"fused_tri"``
-        (K5/K6, the reference's ``resolved_fused_shade_grad``) for
-        triangles and no analytic primitive, ``"fused_ana"`` (K10/K11)
-        for spheres or planes and no triangle or cylinder.
+        each segment it runs adds one to its host tallies
+        (``graphs.tally``, :class:`_Route`). With ``fused_shade_grad``,
+        a light, no texture and no cylinder: ``"fused_tri"`` (K5/K6, the
+        reference's ``resolved_fused_shade_grad``) for triangles alone,
+        ``"fused_ana"`` (K10/K11) for spheres or planes alone,
+        ``"fused_mixed"`` (both) for triangles beside spheres or planes.
         ``"autograd"`` (the autograd replay) otherwise."""
         if not (self.fused_shade_grad and scene.n_lights >= 1
-                and not scene.has_textures):
+                and not scene.has_textures) or scene.n_cylinders:
             return "autograd"
-        if scene.n_tris and not shade.has_analytic(scene):
-            return "fused_tri"
-        if not (scene.n_tris or scene.n_cylinders) and shade.has_analytic(
-                scene):
-            return "fused_ana"
-        return "autograd"
+        ana = bool(scene.n_spheres or scene.n_planes)
+        if scene.n_tris:
+            return "fused_mixed" if ana else "fused_tri"
+        return "fused_ana" if ana else "autograd"
 
 
 class Bounce(NamedTuple):
@@ -722,6 +723,57 @@ def _fused_ana_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
     return Bounce(o=o2, d=d2, weight=w2, color=carry.color + add)
 
 
+def _mixed_geom(scene, geom: shade.ShadeGeom, cfg: TraceConfig
+                ) -> shade.ShadeGeom:
+    """The rows the ``"fused_mixed"`` route reads: ``geom`` with each
+    triangle's material row beside its 32 columns of ``tri_pack``, where
+    K5/K6 read it (columns 32:48, as in a triangle-only scene's pack).
+    The gather is K12's forward (``row_sum.gather_rows``), so the
+    material cotangent that K6 leaves in those columns reaches ``mat16``
+    through K12's fixed-order row sum. The mixed pack itself stays 32
+    wide: K3/K4 read it in every render."""
+    mat = row_sum.gather_rows(geom.mat16, scene.tri_mat, cfg.plain)
+    return geom._replace(tri_pack=torch.cat(
+        [geom.tri_pack[:, :32], mat], dim=1).contiguous())
+
+
+def _fused_mixed_segment(scene, geom: shade.ShadeGeom, carry: Bounce, rec,
+                         cfg: TraceConfig) -> Bounce:
+    """One segment through both fused segments (``geom`` from
+    :func:`_mixed_geom`): K5/K6 on the triangle hits, K10/K11 on the
+    sphere and plane hits and on the live misses (the background term).
+    Each passes the other's rays through (no hit: nothing added, the
+    carry's ray, weight 0), so the results merge by kind and the merge's
+    backward sends each ray's cotangent to the one segment that shaded
+    it."""
+    mark("segment", carry.o.device)
+    kind, idx, _, _, is_shadow = rec
+    ti, is_t, h, miss, lit = _fused_rows(scene, rec, carry.o.dtype)
+    o, d = carry.o.contiguous(), carry.d.contiguous()
+    w = carry.weight.contiguous()
+    lights = (scene.light_pos, scene.light_color, scene.ambience,
+              scene.background)
+    mark("shade", carry.o.device)
+    add_t, o_t, d_t, w_t = sg.ShadeSegment.apply(
+        o, d, w, geom.tri_pack, ti, *lights, is_t, h & is_t,
+        torch.zeros_like(miss), lit, cfg.plain)
+    # K10 shades any kind but KIND_MISS: the triangle hits become misses
+    add_a, o_a, d_a, w_a = sga.ShadeSegmentAna.apply(
+        o, d, w, geom.ana16, geom.mat16,
+        torch.where(is_t, shade.KIND_MISS, kind), idx.contiguous(),
+        h & ~is_t, miss, is_shadow.contiguous(), *lights,
+        (scene.n_spheres, scene.n_planes), cfg.plain)
+    t3 = is_t[:, None]
+    return Bounce(o=torch.where(t3, o_t, o_a), d=torch.where(t3, d_t, d_a),
+                  weight=torch.where(is_t, w_t, w_a),
+                  color=carry.color + (add_t + add_a))
+
+
+def _same_geom(scene, geom: shade.ShadeGeom, cfg: TraceConfig
+               ) -> shade.ShadeGeom:
+    return geom
+
+
 class _Route(NamedTuple):
     """One route of :func:`trace_shade` (a value of :data:`ROUTES`)."""
 
@@ -738,16 +790,27 @@ class _Route(NamedTuple):
     #: residuals are its inputs, so its graph is always kept and its
     #: backward kernel (K6, K11) runs once, its forward never again.
     recompute: bool = False
+    #: (scene, geom, cfg) -> the ShadeGeom its steps read, made from the
+    #: pass's once per :func:`trace_shade` call
+    geom: Callable = _same_geom
+    #: the routes whose host tallies ``"replay.<name>"`` each of its
+    #: segments adds one to: its own name's where empty
+    tallies: tuple = ()
 
 
 #: the lights and the environment, which every route reads
 _LIGHTS = ("light_pos", "light_color", "ambience", "background")
 
 #: the routes of :func:`trace_shade` by :meth:`TraceConfig.replay_route`'s
-#: names (each also a host tally ``"replay.<name>"``)
+#: names, each segment one host tally ``"replay.<name>"``; a segment of
+#: ``"fused_mixed"`` runs both fused segments and adds one to each one's
+#: tally, ``"replay.fused_tri"`` and ``"replay.fused_ana"``
 ROUTES = {
     "fused_tri": _Route(_fused_segment, ("tri_pack",), _LIGHTS),
     "fused_ana": _Route(_fused_ana_segment, ("ana16", "mat16"), _LIGHTS),
+    "fused_mixed": _Route(
+        _fused_mixed_segment, ("tri_pack", "ana16", "mat16"), _LIGHTS,
+        geom=_mixed_geom, tallies=("fused_tri", "fused_ana")),
     "autograd": _Route(
         _replay_segment, ("tri_pack", "mat16"),
         ("sphere_center", "sphere_radius", "plane_center", "plane_normal",
@@ -894,10 +957,10 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     occlusion query. ``trace_shade(scene, o, d, trace_topology(scene, o,
     d))`` equals ``trace(scene, o, d)``. ``geom`` (the packed rows) can be
     shared by the tiles of one pass, so that its gather backward runs
-    once. The route (the fused K5/K6 segment, the fused K10/K11 segment
-    or the autograd replay) is the entry of :data:`ROUTES` that
-    :meth:`TraceConfig.replay_route` names; each segment adds one to the
-    host tally ``"replay.<route>"``
+    once. The route (the fused K5/K6 segment, the fused K10/K11 segment,
+    both side by side, or the autograd replay) is the entry of
+    :data:`ROUTES` that :meth:`TraceConfig.replay_route` names; each
+    segment adds one to the route's host tallies ``"replay.<route>"``
     (``graphs.tally``: a captured graph adds its counts at each replay).
 
     Segment 0 of a topology from :func:`trace_topology` has every ray
@@ -916,13 +979,15 @@ def trace_shade(scene, o: torch.Tensor, d: torch.Tensor, topo: TraceTopo,
     recompute = checkpoint and route.recompute
     if geom is None:
         geom = shade.pack_shade_geom(scene, cfg.plain)
+    geom = route.geom(scene, geom, cfg)
     R = o.shape[0]
     carry = Bounce(o=o, d=d, weight=torch.ones(R, device=o.device),
                    color=torch.zeros((R, 3), device=o.device))
     for s in range(topo.kind.shape[0]):
         rec = (topo.kind[s], topo.idx[s], topo.hit[s], topo.miss[s],
                topo.shadow[s])
-        graphs.tally("replay." + name)
+        for t in route.tallies or (name,):
+            graphs.tally("replay." + t)
         if s == 0 and recompute:
             # the replay draws no random numbers, and a capture cannot
             # stash the CUDA generator's state

@@ -56,6 +56,7 @@ from myraytracer_tpu_torch.ops import graphs
 from myraytracer_tpu_torch.ops import render as prender
 from myraytracer_tpu_torch.ops import shade
 from myraytracer_tpu_torch.ops import shade_grad as sg
+from myraytracer_tpu_torch.ops import shade_grad_ana as sga
 from myraytracer_tpu_torch.ops import tracer as tr
 from myraytracer_tpu_torch.parallel.shard_render import split_params
 from myraytracer_tpu_torch.scenes import kinds
@@ -428,9 +429,10 @@ def tiles_tri():
 
 
 #: (scene fixture, fused_shade_grad) of the branch-against-select cases:
-#: the plane of "tiles" sends it through the autograd replay either way
-SHADE_CASES = [("dead", True), ("dead", False), ("tiles", False),
-               ("tiles_tri", True), ("tiles_tri", False)]
+#: the plane of "tiles" sends it through K5/K6 beside K10/K11
+#: ("fused_mixed") or the autograd replay
+SHADE_CASES = [("dead", True), ("dead", False), ("tiles", True),
+               ("tiles", False), ("tiles_tri", True), ("tiles_tri", False)]
 
 
 def _shade_case(request, name, fused):
@@ -559,6 +561,8 @@ ROUTE_SCENES = {
     "fused_tri": lambda: live_scene("fused", "port"),
     "fused_ana": lambda: kinds.mixed_scene(mirror=0.4, cyl=False, tris=False,
                                            w=16, h=12),
+    "fused_mixed": lambda: kinds.mixed_scene(mirror=0.4, cyl=False, w=16,
+                                             h=12),
     "autograd": lambda: kinds.mixed_scene(mirror=0.4, w=16, h=12)}
 
 
@@ -568,8 +572,9 @@ def test_segment_inputs_hold_every_tensor_the_replay_reads(route):
     with every float scene tensor but the route's fields, and every
     ShadeGeom row but its rows, cut from the graph, the route's step on
     segment 1 of a scene of its kinds (the autograd replay's with every
-    kind and textures, bilinear) reaches no input, and its conditional
-    segment's tensors are exactly its rows and fields."""
+    kind and textures, bilinear; each on the rows its ``geom`` makes)
+    reaches no input, and its conditional segment's tensors are exactly
+    its rows and fields."""
     ref = ROUTE_SCENES[route]()
     port = ref.build(device="cpu")
     cfg = tr.TraceConfig(texture_filter="bilinear")
@@ -581,8 +586,8 @@ def test_segment_inputs_hold_every_tensor_the_replay_reads(route):
     leaves = {k: v.detach().clone().requires_grad_(True)
               for k, v in split_params(port).items()}
     scene = dataclasses.replace(port, **leaves)
-    geom = shade.pack_shade_geom(scene)
     spec = tr.ROUTES[route]
+    geom = spec.geom(scene, shade.pack_shade_geom(scene), cfg)
     cut_geom = geom._replace(**{r: getattr(geom, r).detach()
                                 for r in spec.rows})
     cut = dataclasses.replace(scene, **{f: getattr(port, f)
@@ -683,9 +688,12 @@ LIVE_KINDS = {"analytic": (shade.KIND_SPHERE, shade.KIND_PLANE,
               "texture": (shade.KIND_TRI,), "fused": (shade.KIND_TRI,)}
 
 
-def _count_calls(monkeypatch, mod, names):
-    counts = dict.fromkeys(names, 0)
+def _count_calls(monkeypatch, mod, names, counts=None):
+    """Count the calls of ``mod``'s functions ``names`` (in ``counts``
+    where given)."""
+    counts = {} if counts is None else counts
     for name in names:
+        counts[name] = 0
         fn = getattr(mod, name)
 
         def counted(*a, _f=fn, _n=name):
@@ -712,16 +720,19 @@ def test_live_later_segment_matches_reference_and_its_work(what,
                                                            monkeypatch):
     """Segment 1 live: the training step meets the reference's
     value_and_grad (loss rtol 1e-5, every gradient within 5e-4 x max|a|,
-    split_params' keys). Per step, a live segment's autograd replay runs
-    twice in the checkpointed training step (forward, and recomputed in
-    its backward) and once in the fit step (its graph kept); the fused
-    segment runs K5 once and K6 once; a dead segment runs nothing."""
+    split_params' keys). Per step, a live segment's autograd replay
+    (textures) runs twice in the checkpointed training step (forward,
+    and recomputed in its backward) and once in the fit step (its graph
+    kept); a fused segment runs K5 once and K6 once, and on the mixed
+    kinds K10 once and K11 once besides; a dead segment runs nothing."""
     ref = live_scene(what, "ref").build()
     port = to_port(ref)
     cam = live_scene(what, "port").camera
-    fused = what == "fused"
+    route = {"analytic": "fused_mixed", "texture": "autograd",
+             "fused": "fused_tri"}[what]
+    fused = route != "autograd"
     cfg = tr.TraceConfig(texture_filter="nearest")
-    assert cfg.replay_route(port) == ("fused_tri" if fused else "autograd")
+    assert cfg.replay_route(port) == route
     assert port.n_segments == 3
     o, d = prender.primary_rays_blocked(cam, "cpu")
     topo = tr.trace_topology(port, o, d)
@@ -751,8 +762,13 @@ def test_live_later_segment_matches_reference_and_its_work(what,
         np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=k)
 
     n_live = sum(live)
-    counts = (_count_calls(monkeypatch, sg, ("segment_fwd", "segment_bwd"))
-              if fused else _count_step(monkeypatch, "autograd"))
+    kernels = {sg: ("segment_fwd", "segment_bwd"),
+               sga: ("segment_ana_fwd", "segment_ana_bwd")}
+    if route == "fused_tri":
+        del kernels[sga]
+    counts = {} if fused else _count_step(monkeypatch, "autograd")
+    for mod, names in (kernels.items() if fused else ()):
+        _count_calls(monkeypatch, mod, names, counts)
     case = dict(port=port, o=o, d=d)
     per_step = {}
     with branching():
@@ -766,7 +782,7 @@ def test_live_later_segment_matches_reference_and_its_work(what,
                 _fit_step(case, cfg)
             per_step[entry] = dict(counts)
     if fused:
-        want = {"segment_fwd": n_live, "segment_bwd": n_live}
+        want = dict.fromkeys(counts, n_live)
         assert per_step == {"loss_grad": want, "fit": want}
     else:
         assert per_step == {"loss_grad": {"_replay_segment": 2 * n_live},

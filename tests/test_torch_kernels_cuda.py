@@ -2068,7 +2068,8 @@ def test_graphed_office_fit_step_takes_the_row_sum(cuda):
 def test_graphed_toon_fit_step_equals_eager(cuda):
     """o_07 at a quarter of its size (150 x 75: 19,680 PHONG triangles over a
     mirror plane, two lights) through ``fit_pixels`` on the autograd
-    route, as the ``toon-600x300.fit`` cell runs it: four steps of one
+    route (``fused_shade_grad=False``; the ``toon-600x300.fit`` cell's
+    settings otherwise): four steps of one
     renderer (a warm-up, a capture and its replay, two replays) against
     four under ``disable_graphs()``. The capture holds the 9 IF nodes of
     segments 1 to 3 (the topology's, the replay's forward and backward);
@@ -2086,7 +2087,8 @@ def test_graphed_toon_fit_step_equals_eager(cuda):
     graphs.clear()
     sc = scene_07_toon_faces(scale=0.25)
     data, cam = sc.build(device=cuda), sc.camera
-    cfg = tr.TraceConfig(tri_method="auto", texture_filter="bilinear")
+    cfg = tr.TraceConfig(tri_method="auto", texture_filter="bilinear",
+                         fused_shade_grad=False)
     assert cfg.replay_route(data) == "autograd"
     assert data.n_tris == 19680 and data.n_lights == 2
     assert data.n_segments == 4
@@ -2123,3 +2125,144 @@ def test_graphed_toon_fit_step_equals_eager(cuda):
                 (a[k] - b[k]).abs().max()), float(b[k].abs().max()))
     for k in want[2]:
         assert torch.equal(got[2][k], want[2][k]), k
+
+
+# --- K5/K6 beside K10/K11 on a mixed scene (o_07, "fused_mixed") ----------
+
+def _toon(dev):
+    """o_07 at a quarter of its size (150 x 75) and its camera."""
+    from myraytracer_tpu_torch.scenes.golden import scene_07_toon_faces
+
+    sc = scene_07_toon_faces(scale=0.25)
+    return sc.build(device=dev), sc.camera
+
+
+#: the mixed segment's differentiable inputs, and the bar of each
+#: gradient against the plain version's (K6's and K11's)
+MIXED_BWD = dict(o=3e-5, d=3e-5, weight=3e-5, tri_pack=5e-4, ana16=5e-4,
+                 mat16=5e-4, light_pos=3e-5, light_color=3e-5,
+                 ambience=3e-5, background=3e-5)
+
+
+@pytest.mark.parametrize("s", [0, 1])
+def test_mixed_segment_kernels_match_plain_on_toon(cuda, s):
+    """Segment s of the ``"fused_mixed"`` route on o_07 at 150 x 75 (K5/K6
+    on the heads' hits, K10/K11 on the mirror plane's and on the misses),
+    with the recorded topology: one launch of each kernel each way, the
+    outputs within RTOL/ATOL of the plain versions', and every input's
+    gradient under seeded cotangents within MIXED_BWD's bars."""
+    import dataclasses
+
+    data, cam = _toon(cuda)
+    assert tr.TraceConfig().replay_route(data) == "fused_mixed"
+    o, d = primary_rays_blocked(cam, cuda)
+    R = o.shape[0]
+    with graphs.disable_graphs():
+        topo = tr.trace_topology(data, o, d)
+    geom = tr._mixed_geom(data, shade.pack_shade_geom(data), tr.TraceConfig())
+    recs = [tuple(getattr(topo, f)[k] for f in ("kind", "idx", "hit", "miss",
+                                                 "shadow")) for k in range(2)]
+    carry = tr.Bounce(o, d, torch.ones(R, device=cuda), torch.zeros_like(o))
+    for k in range(s):
+        carry = tr._fused_mixed_segment(data, geom, carry, recs[k],
+                                        tr.TraceConfig(plain=True))
+    # segment 0 hits the heads and the plane; segment 1, the plane's
+    # reflections, hits the heads and misses
+    hit_kinds = set(recs[s][0][recs[s][2]].unique().tolist())
+    assert hit_kinds == ({shade.KIND_TRI} if s else {shade.KIND_TRI,
+                                                     shade.KIND_PLANE})
+    assert bool(recs[s][3].any())
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13 + s)
+    cots = [torch.randn(x.shape, generator=gen, device=cuda) for x in carry]
+    outs, grads = [], []
+    for plain in (False, True):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in (
+            *zip(("o", "d", "weight"), carry[:3]),
+            *((r, getattr(geom, r)) for r in ("tri_pack", "ana16", "mat16")),
+            *((f, getattr(data, f)) for f in ("light_pos", "light_color",
+                                              "ambience", "background")))}
+        scene = dataclasses.replace(data, **{f: leaves[f] for f in (
+            "light_pos", "light_color", "ambience", "background")})
+        g = geom._replace(**{r: leaves[r] for r in ("tri_pack", "ana16",
+                                                    "mat16")})
+        before = dict(LAUNCHES)
+        out = tr._fused_mixed_segment(
+            scene, g, tr.Bounce(leaves["o"], leaves["d"], leaves["weight"],
+                                carry.color), recs[s],
+            tr.TraceConfig(plain=plain))
+        got = torch.autograd.grad(sum((y * c).sum() for y, c in zip(
+            out, cots)), list(leaves.values()))
+        torch.cuda.synchronize()
+        moved = {k: LAUNCHES[k] - before[k] for k in (
+            "seg_fwd", "seg_bwd", "seg_ana_fwd", "seg_ana_bwd")}
+        assert moved == dict.fromkeys(moved, 0 if plain else 1), moved
+        outs.append([y.detach() for y in out])
+        grads.append(dict(zip(leaves, got)))
+    for name, a, b in zip(tr.Bounce._fields, *outs):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=name)
+    for name, rel in MIXED_BWD.items():
+        _close_scaled(grads[0][name], grads[1][name], name, rel)
+    # the heads' material cotangent lies in tri_pack's columns 32:48 (K6),
+    # the plane's, which segment 0 alone hits, in mat16 (K11)
+    assert float(grads[1]["tri_pack"][:, 32:].abs().max()) > 0
+    assert (float(grads[1]["mat16"].abs().max()) > 0) == (s == 0)
+
+
+def test_graphed_toon_fit_step_on_the_mixed_route(cuda):
+    """o_07 at 150 x 75 through ``fit_pixels`` on the ``"fused_mixed"``
+    route, as the ``toon-600x300.fit`` cell runs it: four steps of one
+    renderer (a warm-up, a capture and its replay, two replays) against
+    four under ``disable_graphs()``. The capture holds the 9 IF nodes of
+    segments 1 to 3 and a replay runs segment 1's three bodies and skips
+    the six of segments 2 and 3, as on the autograd route; the graph
+    counts 4 segments in each fused route's tally, one K12 gather and the
+    topology's 6 listed walks a step, and launches no
+    ``indexing_backward_kernel``. The losses within rtol 1e-5, each
+    step's gradient (as Adam's ``exp_avg`` holds it) and the fitted
+    leaves within 5e-4 x max|eager| (K6 sums its cotangents with float
+    atomics in a run-dependent order)."""
+    from myraytracer_tpu_torch.inverse import InverseRenderer, adam
+
+    graphs.clear()
+    data, cam = _toon(cuda)
+    cfg = tr.TraceConfig(tri_method="auto", texture_filter="bilinear")
+    assert cfg.replay_route(data) == "fused_mixed"
+    tgt = (0.9 * render(data, cam, cfg) + 0.02).reshape(-1, 3)
+    xs, ys = (g.reshape(-1) for g in cam.pixel_grid(cuda))
+
+    def fn():
+        inv = InverseRenderer(data, ("mat_diffuse", "light_color"),
+                              optimizer=adam(0.05), camera=cam, cfg=cfg)
+        losses, moments = [], []
+        for _ in range(4):
+            losses += inv.fit_pixels(xs, ys, tgt, steps=1).losses
+            moments.append({k: inv.optimizer.state[p]["exp_avg"].clone()
+                            for k, p in inv.params.items()})
+        return losses, moments, {k: v.detach().clone()
+                                 for k, v in inv.params.items()}
+
+    want, l_eager = _eager(fn)
+    assert all(l_eager[k] == 16 for k in ("seg_fwd", "seg_bwd",
+                                          "seg_ana_fwd", "seg_ana_bwd"))
+    nodes = graphs.COUNTS["if_nodes"]
+    got = fn()                          # a warm-up, a capture, replays
+    assert graphs.COUNTS["if_nodes"] - nodes == 9
+    assert graphs.count_bodies() == (3, 6)
+    assert graphs.tallies("fit_step") == {
+        "replay.fused_tri": 4, "replay.fused_ana": 4, "pack.rowsum": 1,
+        "walk.list": 6}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any("rowsum_part_kernel" in n for n in names)
+    assert not any("indexing_backward" in n for n in names)
+    for run in (got, again):
+        np.testing.assert_allclose(run[0], want[0], rtol=1e-5)
+        for a, b in zip(run[1], want[1]):
+            for k in b:
+                _close_scaled(a[k], b[k], k, rel=5e-4)
+        for k in want[2]:
+            _close_scaled(run[2][k], want[2][k], k, rel=5e-4)

@@ -147,8 +147,9 @@ def _ref_cylinder_guarded(o, d, center, axis, radius, height):
 def test_unported_scene_kinds_raise(what, monkeypatch):
     """The scene kinds the training step once refused (spheres, planes,
     cylinders, textures with either filter, analytic mirrors, scenes
-    without triangles) train
-    through the autograd replay and match the reference's training step:
+    without triangles) train, the mesh beside a sphere or a plane through
+    K5/K6 and K10/K11 side by side (``"fused_mixed"``), the rest through
+    the autograd replay, and match the reference's training step:
     loss within rtol 1e-5, every gradient within 5e-4 * max|a|, the keys
     of split_params. The reference runs its "brute" method, the cheapest
     on the CPU. The target is seeded noise, far from the render: a target
@@ -167,7 +168,8 @@ def test_unported_scene_kinds_raise(what, monkeypatch):
     port = to_port(ref)
     cam = _kind_scene(kind, "port").camera
     cfg = tr.TraceConfig(tri_method=method, texture_filter=filt)
-    assert cfg.replay_route(port) == "autograd"
+    assert cfg.replay_route(port) == (
+        "fused_mixed" if what in ("sphere", "plane") else "autograd")
     img = prender.render(prender.restore_mirror_chain(port), cam, cfg=cfg)
     assert bool(torch.isfinite(img).all())
     rng = np.random.default_rng(len(what))
@@ -210,8 +212,9 @@ def test_unported_scene_kinds_raise(what, monkeypatch):
 
 def test_trace_shade_picks_the_segment_by_scene_content(monkeypatch):
     """The fused K5/K6 segment on an untextured triangle-only scene with a
-    light (the reference's resolved_fused_shade_grad), the autograd
-    replay on a scene with a sphere, whatever fused_shade_grad says."""
+    light (the reference's resolved_fused_shade_grad), K5/K6 beside
+    K10/K11 on the same scene with a sphere; the autograd replay on
+    either with fused_shade_grad=False."""
     calls = []
     for name, route in tr.ROUTES.items():
         monkeypatch.setitem(tr.ROUTES, name, route._replace(
@@ -225,14 +228,15 @@ def test_trace_shade_picks_the_segment_by_scene_content(monkeypatch):
         topo = tr.trace_topology(data, o, d)
         calls.clear()
         tr.trace_shade(data, o, d, topo)
-        want = "fused_tri" if s is office_s else "autograd"
+        want = "fused_tri" if s is office_s else "fused_mixed"
         assert calls and set(calls) == {want}, calls
     office_d = office_s.build(device="cpu")
+    sphere_d = sphere_s.build(device="cpu")
     assert tr.TraceConfig().replay_route(office_d) == "fused_tri"
-    assert tr.TraceConfig(fused_shade_grad=False).replay_route(
-        office_d) == "autograd"
-    assert tr.TraceConfig().replay_route(
-        sphere_s.build(device="cpu")) == "autograd"
+    assert tr.TraceConfig().replay_route(sphere_d) == "fused_mixed"
+    for data in (office_d, sphere_d):
+        assert tr.TraceConfig(fused_shade_grad=False).replay_route(
+            data) == "autograd"
 
 
 def test_plain_config_runs_the_same_path_on_cpu():

@@ -354,6 +354,18 @@ def _route_scene(what):
         return mesh_scene("port").build(device="cpu")
     if what == "triangles_and_analytic":
         return kinds.mixed_scene(cyl=False, w=16, h=16).build(device="cpu")
+    if what.startswith(("triangles_", "textured_")):
+        # the mesh (or the textured quads) beside one analytic primitive
+        sc = (kinds.textured_scene(w=16, h=16) if what.startswith("textured")
+              else mesh_scene("port"))
+        mat = Material(diffuse=(0.3, 0.5, 0.6))
+        if what.endswith("plane"):
+            sc.add_plane((0, -1, 0), (0, 1, 0), mat)
+        elif what.endswith("sphere"):
+            sc.add_sphere((-1.3, 0.4, 0.6), 0.45, mat)
+        else:
+            sc.add_cylinder((-1.3, -0.1, 0.5), (0.1, 1, 0), 0.3, 1.2, mat)
+        return sc.build(device="cpu")
     if what == "cylinder":
         return kinds.mixed_scene(tris=False, w=16, h=16).build(device="cpu")
     data = _route_scene("spheres_planes")
@@ -367,7 +379,11 @@ def _route_scene(what):
 #: scene -> the route with fused_shade_grad set
 ROUTE_CASES = {"spheres_planes": "fused_ana", "planes": "fused_ana",
                "triangles": "fused_tri",
-               "triangles_and_analytic": "autograd",
+               "triangles_and_analytic": "fused_mixed",
+               "triangles_plane": "fused_mixed",
+               "triangles_sphere": "fused_mixed",
+               "triangles_cylinder": "autograd",
+               "textured_triangles_plane": "autograd",
                "cylinder": "autograd", "texture": "autograd",
                "no_light": "autograd"}
 
@@ -382,11 +398,18 @@ def test_route_by_primitive_kinds_textures_and_lights(what):
     assert off.replay_route(data) == "autograd"
 
 
-#: the scenes of the route test: o_04 (spheres and planes, 3 segments)
-#: and test_torch_cond's triangle-only mirror scene (3 segments)
+#: the scenes of the route test: o_04 (spheres and planes, 3 segments),
+#: test_torch_cond's triangle-only mirror scene (3 segments) and its
+#: mirror sphere, plane and mesh (3 segments), each with its route's
+#: tallies
 ROUTE_TALLY_SCENES = {
     "molecule": lambda: golden.scene_04_molecule(scale=0.05, n_atoms=24),
-    "triangles": lambda: live_scene("fused", "port")}
+    "triangles": lambda: live_scene("fused", "port"),
+    "mixed": lambda: live_scene("analytic", "port")}
+#: each scene's route with fused_shade_grad, and the tallies it adds to
+ROUTE_TALLIES = {"molecule": ("fused_ana", ("fused_ana",)),
+                 "triangles": ("fused_tri", ("fused_tri",)),
+                 "mixed": ("fused_mixed", ("fused_tri", "fused_ana"))}
 
 
 @pytest.mark.parametrize("checkpoint", [False, True])
@@ -395,10 +418,12 @@ ROUTE_TALLY_SCENES = {
 def test_trace_shade_takes_the_route_and_tallies_it(monkeypatch, scene,
                                                     fused, checkpoint):
     """trace_shade runs each segment through its route's step (segment 0
-    directly, the others as conditional segments): o_04 through K10/K11
-    and a triangle-only scene through K5/K6, or each through the autograd
-    replay under fused_shade_grad=False; it counts each segment in
-    graphs.TALLIES by route, and gives the same colours either way."""
+    directly, the others as conditional segments): o_04 through K10/K11,
+    a triangle-only scene through K5/K6 and a mixed one through both, or
+    each through the autograd replay under fused_shade_grad=False; it
+    counts each segment in graphs.TALLIES by route (the mixed route in
+    both fused routes' tallies), and gives the same colours either
+    way."""
     calls = []
     for nm, route in tr.ROUTES.items():
         monkeypatch.setitem(tr.ROUTES, nm, route._replace(
@@ -411,11 +436,11 @@ def test_trace_shade_takes_the_route_and_tallies_it(monkeypatch, scene,
     cfg = tr.TraceConfig(fused_shade_grad=fused)
     before = dict(graphs.TALLIES)
     c = tr.trace_shade(data, o, d, topo, cfg, checkpoint=checkpoint)
-    route = ({"molecule": "fused_ana", "triangles": "fused_tri"}[scene]
-             if fused else "autograd")
+    route, tallies = (ROUTE_TALLIES[scene] if fused
+                      else ("autograd", ("autograd",)))
     moved = {k: v - before.get(k, 0) for k, v in graphs.TALLIES.items()
              if v != before.get(k, 0)}
-    assert moved == {f"replay.{route}": data.n_segments}
+    assert moved == {f"replay.{t}": data.n_segments for t in tallies}
     assert calls and set(calls) == {route}
     ref = tr.trace(data, o, d)
     np.testing.assert_allclose(c.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)

@@ -3,15 +3,17 @@ fit cells on the mirror scenes, ``toon-600x300.fit`` and
 ``rings-700x500.fit``, on the CPU.
 
 The frozen generator against the program's golden; the sizes the
-configuration states; the replay route each cell takes (the autograd
-replay on the toon heads, which mix triangles with a plane; K5/K6 on the
-rings); the program's fit step against the plain reference
+configuration states; the replay route each cell takes (K5/K6 and
+K10/K11 side by side on the toon heads, which mix triangles with a
+plane; K5/K6 on the rings); the program's fit step against the plain
+reference
 (``rtbench/reference/fit.py``) on each at a small size, and the
 reference in bfloat16 failing each cell's limits; each cell run
 ``correct`` by the harness, traced and untraced; a ray of the rings at
 700x500 whose replayed re-solve grazes a triangle's edge; the phase
-``shade.autograd``, which the autograd replay's forward opens and no
-fused route does; and the readers of ``replay.autograd_ms.fit`` and
+``shade.autograd``, which the autograd replay's forward opens (on the
+toon heads with ``fused_shade_grad=False``) and no fused route does;
+and the readers of ``replay.autograd_ms.fit`` and
 ``tracer.live_share.fit`` on synthetic traces and counters."""
 
 import os
@@ -111,7 +113,7 @@ def _program(cell: harness.Cell):
     return data, port_camera(arrays["camera"], "cpu"), arrays, cfg
 
 
-@pytest.mark.parametrize("name, route, lights", [(TOON, "autograd", 2),
+@pytest.mark.parametrize("name, route, lights", [(TOON, "fused_mixed", 2),
                                                   (RINGS, "fused_tri", 1)])
 def test_fit_cells_take_their_replay_route(name, route, lights):
     data, _, _, cfg = _program(_small(name, (14, 10)))
@@ -231,8 +233,9 @@ def _scene(name):
 
 
 @pytest.mark.parametrize("name, fused, route", [
-    ("toon", True, "autograd"), ("rings", True, "fused_tri"),
-    ("molecule", True, "fused_ana"), ("rings", False, "autograd")])
+    ("toon", True, "fused_mixed"), ("rings", True, "fused_tri"),
+    ("molecule", True, "fused_ana"), ("rings", False, "autograd"),
+    ("toon", False, "autograd")])
 def test_shade_autograd_marks_the_autograd_replay_alone(monkeypatch, name,
                                                         fused, route):
     """A fit step's replay marks ``segment`` and then ``shade.autograd`` in
